@@ -1,17 +1,13 @@
 """Audio feature pipeline on the engine: CQT, mel/MFCC, multitaper PSD,
 and Griffin-Lim resynthesis from a mel-free magnitude.
 
-Run: python examples/audio_features.py   (CPU by default)
+Run: python examples/audio_features.py   (default JAX backend)
 """
 
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 

@@ -16,10 +16,6 @@ import os
 import sys
 
 import numpy as np
-import jax
-
-if not os.environ.get("SPECTRAL_DEMO_TPU"):
-    jax.config.update("jax_platforms", "cpu")
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 

@@ -12,18 +12,13 @@ invariant:
 4. pulse compression + Doppler FFT form the range-Doppler map;
 5. 2-D CA-CFAR pulls both targets out of the noise.
 
-Run: python examples/radar_array.py      (CPU or TPU; small shapes)
+Run: python examples/radar_array.py      (default JAX backend; small shapes)
 """
 
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-import jax
-
-if os.environ.get("SPECTRAL_DEMO_CPU", "1") == "1":
-    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 

@@ -6,18 +6,13 @@ spectrogram → wavelet denoising → empirical mode decomposition →
 quadratic-phase-coupling detection via the bicoherence → LTI system
 simulation and pole placement.
 
-Run: python examples/signal_toolbox.py      (CPU or TPU; small shapes)
+Run: python examples/signal_toolbox.py      (default JAX backend; small shapes)
 """
 
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-import jax
-
-if os.environ.get("SPECTRAL_DEMO_CPU", "1") == "1":
-    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 

@@ -17,9 +17,6 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-if not os.environ.get("SPECTRAL_DEMO_TPU"):
-    jax.config.update("jax_platforms", "cpu")
-
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import mixed_radix_fast_fourier_transform_tpu as sp  # noqa: E402

@@ -1,11 +1,11 @@
-"""mixed_radix_fast_fourier_transform_tpu — TPU-native mixed-radix spectral library.
+"""mixed_radix_fast_fourier_transform_tpu — mixed-radix spectral library in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the reference C
+A from-scratch JAX/XLA rebuild of the capabilities of the reference C
 library `Tugbars/Mixed-Radix-Fast-Fourier-Transform` (highSpeedFFT): plan-based
 complex 1-D FFTs over mixed-radix factorizations, Bluestein's chirp-z transform
 for arbitrary lengths, packed real-input rFFT/irFFT, and FFT-based convolution
-— plus TPU-first extensions the reference lacks: batching, N-D transforms,
-autodiff, and mesh-sharded distributed transforms over ICI.
+— plus extensions the reference lacks: batching, N-D transforms,
+autodiff, and mesh-sharded distributed transforms over several devices.
 
 Public API (numpy.fft-flavoured):
     fft, ifft, fft2, ifft2, fftn, ifftn

@@ -14,8 +14,8 @@ sign(z)·max(|z|−λ, 0) adaptively sparsifies the spectrum.  A hard mode
 fraction keeps only the lowest spatial frequencies (static slices — XLA
 sees fixed shapes).
 
-TPU shaping: the spectral MLP is einsums over (block, channel) on the kept
-low-mode tensor (MXU); complex arithmetic is explicit (re, im) plane pairs
+Device shape: the spectral MLP is einsums over (block, channel) on the kept
+low-mode tensor; complex arithmetic is explicit (re, im) plane pairs
 (four real matmuls per complex product — no complex64 in the hot path);
 the rfft2/irfft2 ride the plan-based engine.  Everything is a dict pytree
 with jittable, differentiable apply/train_step like the other families.

@@ -8,9 +8,11 @@ replaces the attention sublayer of a transformer encoder:
     h       = LayerNorm( x + mix(x) )
     out     = LayerNorm( h + FFN(h) )             FFN = GELU(x·W1+b1)·W2+b2
 
-TPU-shaped by construction: the two FFT passes are stage matmuls on the MXU
-batched over (batch·seq) and (batch·hidden); LayerNorm/GELU are VPU
-elementwise ops XLA fuses.  The distributed variant runs the sequence-axis
+The two FFT passes are stage matmuls batched over (batch·seq) and
+(batch·hidden); LayerNorm/GELU are elementwise ops XLA fuses.  The FFN
+products follow JAX's default matmul precision (TF32 on Hopper tensor
+cores); wrap a step in ``jax.default_matmul_precision("highest")`` for
+fp32 products.  The distributed variant runs the sequence-axis
 FFT through the four-step all-to-all engine, giving sequence parallelism for
 contexts longer than one chip — the transformer-shaped showcase of the
 library's long-transform machinery.
@@ -119,7 +121,7 @@ def fourier_mix_distributed(
     """Token mixing with the sequence axis sharded over ``seq_axis``.
 
     The hidden-axis FFT is local (batched over the sharded sequence); the
-    sequence-axis FFT is the distributed four-step (three ICI all-to-alls).
+    sequence-axis FFT is the distributed four-step (three all-to-alls).
     ``x``: (batch, seq, hidden) sharded (data_axis, seq_axis, None).
     """
     z = fft(x, axis=-1, config=config)             # local, sharding propagates

@@ -9,9 +9,9 @@ in the frequency domain
 
 with a learned complex tensor R over the lowest ``modes`` frequency bins —
 the standard neural-operator block (Li et al., 2021), here running on this
-library's plan-based rFFT instead of a framework builtin.  TPU-shaped by
-construction: the spectral mix is an einsum over channels (MXU) on the
-low-mode slice, everything else is elementwise (VPU, fused by XLA).
+library's plan-based rFFT instead of a framework builtin.  Device-shaped by
+construction: the spectral mix is an einsum over channels on the
+low-mode slice, everything else is elementwise (fused by XLA).
 
 Functional API: params are dict pytrees, apply/train_step are jittable and
 differentiate through every stage matmul of the FFT engine.

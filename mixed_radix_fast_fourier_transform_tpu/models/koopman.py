@@ -6,7 +6,7 @@ of :func:`..ops.datadriven.dmd` (DMD fits K on raw snapshots; here the
 coordinates are learned jointly so strongly nonlinear dynamics become
 linear).  Multi-step forecasting is latent matrix powers + one decode:
 ``x̂_{t+s} = ψ(K^s φ(x_t))`` — the rollout is a `lax.scan` over matmuls,
-every step on the MXU, and the learned spectrum (eig K) reads exactly like
+every step as matmuls, and the learned spectrum (eig K) reads exactly like
 a DMD mode analysis.
 
 Plain pytree params + functional apply, matching the other model families;

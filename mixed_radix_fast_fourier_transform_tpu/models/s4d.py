@@ -11,7 +11,7 @@ B̄ = (Ā − 1)/A.  Unrolling gives the convolution kernel
 
     K[l] = 2·Re( Σ_n C_n · B̄_n · Ā_n^l ),      l = 0..L−1,
 
-evaluated here as one dense (H·N × L) MXU contraction over the complex
+evaluated here as one dense (H·N × L) contraction over the complex
 exponential table (real/imag planes — no complex dtype on the wire), and
 applied with the library's packed rFFT long-convolution (ops/rfft), which
 is exactly BASELINE config 5's shape.  A `step` function runs the same
@@ -19,7 +19,7 @@ layer recurrently for O(1)-per-token streaming inference; the FFT and
 recurrent paths agree to fp32 and oracle-test each other.
 
 The reference library has no models (its demo harness, src/real.c:269-482,
-is disabled); this family showcases long-convolution training on TPU.
+is disabled); this family showcases long-convolution training on an accelerator.
 """
 
 from __future__ import annotations
@@ -97,7 +97,7 @@ def s4d_kernel(p: Params, length: int) -> Array:
     """(H, L) real convolution kernel K[l] = 2·Re(Σ_n b̄c_n · Ā_n^l).
 
     Ā^l is evaluated in log space (l·Δ·A), so the (H, N/2, L) exponential
-    table is numerically stable at any l; the n-contraction is a dense MXU
+    table is numerically stable at any l; the n-contraction is a dense
     matmul per channel (einsum over the state axis).
     """
     a_re = -jnp.exp(p["log_neg_a_re"])[None, :]

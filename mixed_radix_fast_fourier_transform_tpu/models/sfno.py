@@ -10,8 +10,8 @@ with a learned complex tensor R[i, o, l] that depends on the DEGREE l only —
 by Schur's lemma that is exactly the set of linear maps commuting with
 rotations, so the spectral path is SO(3)-equivariant by construction (tested
 via exact azimuthal grid rotations).  The sht/isht pair is this library's
-Gauss-Legendre transform (:mod:`..ops.sht`): Legendre tables contract on the
-MXU and longitude rides the batched engine FFT.
+Gauss-Legendre transform (:mod:`..ops.sht`): Legendre tables contract as
+matmuls and longitude rides the batched engine FFT.
 
 Functional API mirroring :mod:`.fno`: params are dict pytrees; apply /
 loss_fn / train_step are jittable and differentiate through the transforms.

@@ -97,7 +97,7 @@ def apply_distributed(
 
     Forward four-step FFT -> per-bin complex gain -> inverse four-step; the
     gain is replicated, activations stay sharded (data_axis, seq_axis)
-    throughout, and each transform costs three ICI all-to-alls.
+    throughout, and each transform costs three all-to-alls.
     """
     spec = fft_four_step(
         x, mesh, seq_axis=seq_axis, data_axis=data_axis, n1=n1, config=config

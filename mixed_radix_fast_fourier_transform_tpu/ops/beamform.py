@@ -7,9 +7,9 @@ layer that complements the temporal subspace estimators in
 (Bartlett) and Capon (MVDR) direction-of-arrival spectra, and MVDR
 weights for interference-nulling beamforming.
 
-TPU shape: snapshot covariance is one batched MXU contraction; spectrum
-grids evaluate as dense steering-matrix contractions (A ∈ ℂ^{n×G} — the
-MXU eats the whole angle grid in one einsum per term); the single m×m
+Device shape: snapshot covariance is one batched contraction; spectrum
+grids evaluate as dense steering-matrix contractions (A ∈ ℂ^{n×G} — one
+einsum per term covers the whole angle grid); the single m×m
 solve/inverse rides ``jnp.linalg`` (tiny, on-device).  Element positions
 and angle grids are host numpy, like every plan constant (CLAUDE.md
 conventions).
@@ -71,7 +71,7 @@ def steering_vector(array, angles_deg) -> np.ndarray:
 
 def spatial_covariance(x, forward_backward: bool = False) -> Array:
     """Sample spatial covariance R = (1/T)·Σ_t x_t x_tᴴ from snapshots
-    x (…, n_elements, n_snapshots); one MXU contraction.
+    x (…, n_elements, n_snapshots); one contraction.
     ``forward_backward=True`` averages with J·conj(R)·J (centro-Hermitian
     smoothing — doubles the effective snapshot count for ULAs)."""
     x = jnp.asarray(x)

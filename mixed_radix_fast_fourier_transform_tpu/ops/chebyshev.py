@@ -6,7 +6,7 @@ a spectral method for NON-periodic problems — values on the
 Chebyshev-Gauss-Lobatto grid x_j = cos(pi j/(N-1)) transform to polynomial
 coefficients through a DCT-I (one length-2N-2 engine FFT), differentiation
 is an exact coefficient recurrence, and evaluation anywhere is Clenshaw's
-algorithm under ``lax.scan`` (static trip count — compiler-friendly TPU
+algorithm under ``lax.scan`` (static trip count — compiler-friendly
 control flow).
 
 Conventions match ``numpy.polynomial.chebyshev`` (the test oracle):

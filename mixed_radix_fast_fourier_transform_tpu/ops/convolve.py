@@ -1,6 +1,6 @@
 """FFT-based convolution (L4 of the reference).
 
-TPU-native replacement for `fft_convolve` (reference: src/convolve.c:74-214):
+Replacement for `fft_convolve` (reference: src/convolve.c:74-214):
 rfft → pointwise product → irfft, jit-composed so XLA fuses the pointwise pass
 into the surrounding transforms.  Output-mode slicing matches the reference
 exactly for linear convolution:
@@ -115,7 +115,7 @@ def fft_oaconvolve(
     """Overlap-add FFT convolution for long signals against a short kernel.
 
     Splits ``in1`` into frames, convolves each with one batched rFFT pipeline
-    (frames become the batch axis — ideal TPU shape), and overlap-adds.  Use
+    (frames become the batch axis — ideal device shape), and overlap-adds.  Use
     when len(in1) >> len(in2): work drops from O(N log N) at the padded full
     length to O(N log n2).  Capability extension (scipy.signal.oaconvolve
     class); the reference pads the whole signal to a power of two
@@ -339,7 +339,7 @@ def _direct_convolve_nd(in1: Array, in2: Array, axes) -> Array:
     """Full-mode direct convolution over ``axes`` via XLA's convolution op.
 
     ``lax.conv_general_dilated`` computes cross-correlation, so the kernel is
-    flipped; complex inputs expand into real-part convolutions (the MXU has no
+    flipped; complex inputs expand into real-part convolutions (matmul units have no
     complex path).  Supports 1-3 transform axes (XLA's spatial-dim limit)."""
     ax = tuple(a % in1.ndim for a in axes)
     nd = len(ax)
@@ -405,7 +405,7 @@ def convolve(
 ) -> Array:
     """N-D convolution with scipy.signal.convolve semantics (``same`` returns
     the shape of ``in1``; ``valid`` needs one input at least as large on every
-    axis).  ``method``: "auto" | "fft" | "direct" — direct runs the MXU
+    axis).  ``method``: "auto" | "fft" | "direct" — direct runs XLA's
     convolution op (≤3-D), fft runs the engine's padded transforms.  Output is
     fp32/complex64 (scipy preserves int dtypes; this library is float-native).
     Capability extension of the reference's 1-D ``fft_convolve``
@@ -421,8 +421,8 @@ def convolve(
     if method == "auto":
         method = "fft" if in1.ndim > 3 else choose_conv_method(in1, in2, mode)
     if method == "direct" and in1.ndim > 3:
-        raise ValueError("method='direct' supports at most 3 dimensions on "
-                         "TPU (XLA conv spatial limit); use method='fft'")
+        raise ValueError("method='direct' supports at most 3 dimensions "
+                         "(XLA conv spatial limit); use method='fft'")
     if method == "fft":
         return fft_convolven(in1, in2, mode=mode, config=config)
     if mode == "valid":
@@ -579,8 +579,8 @@ def correlate2d(
 
 def choose_conv_method(in1, in2, mode: str = "full") -> str:
     """'fft' or 'direct' (scipy.signal.choose_conv_method semantics, sans
-    timing): on TPU the FFT path wins long before it does on CPU — both
-    routes are MXU matmuls, but direct convolution scales as n·k while the
+    timing): on an accelerator the FFT path wins long before it does on
+    CPU — both routes are matmuls, but direct convolution scales as n·k while the
     padded-FFT path is n·log n — so the crossover is a small tap count."""
     s1 = np.shape(in1)[-1] if np.ndim(in1) else 1
     s2 = np.shape(in2)[-1] if np.ndim(in2) else 1

@@ -7,7 +7,7 @@ signal with scaled wavelets, one row per width:
     out[i] = convolve(data, conj(wavelet(min(10*widths[i], N), widths[i]))[::-1],
                       mode='same')
 
-TPU-native shape: scipy loops N_widths separate direct convolutions with
+Device shape: scipy loops N_widths separate direct convolutions with
 per-scale kernel lengths; here every kernel is centre-embedded into one
 common length (padding both sides by amounts that keep 'same' alignment
 exact) and the whole bank runs as ONE batched FFT convolution through the
@@ -136,7 +136,7 @@ def cwt_tc(
     (…, T) -> (…, n_scales, T) complex,
     W(s, t) = Σ_ω x̂(ω)·√(2πs/dt)·π^{-1/4}·H(ω)·e^{-(sω−w0)²/2}·e^{iωt}.
 
-    TPU shape: ONE forward FFT of the signal, a broadcast (n_scales, T)
+    Device shape: ONE forward FFT of the signal, a broadcast (n_scales, T)
     spectral window multiply (host fp64 constants), ONE inverse FFT over
     the stacked scale axis — no per-scale kernels or convolutions.  The
     equivalent Fourier period is λ = 4πs/(w0 + √(2+w0²))."""

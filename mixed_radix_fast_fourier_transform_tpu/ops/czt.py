@@ -5,7 +5,7 @@ src/highSpeedFFT.c:1735-1907, which hard-codes the DFT case w = e^(-2πi/N),
 a = 1): evaluate X[k] = Σ_n x[n] · a^(−n) · w^(n·k) for k = 0..m−1 at any
 complex ratio ``w`` and starting point ``a`` (scipy.signal.czt semantics).
 
-Same TPU shape as :func:`ops.stockham.exec_bluestein`: the quadratic-phase
+Same device shape as :func:`ops.stockham.exec_bluestein`: the quadratic-phase
 identity n·k = (n² + k² − (k−n)²)/2 turns the sum into one linear convolution
 with the chirp v[j] = w^(−j²/2), executed as two padded mixed-radix FFTs
 whose kernel spectrum and pre/post chirps are fp64 plan-time constants cached

@@ -1,7 +1,7 @@
 """Discrete cosine/sine transforms (types I–IV) via the FFT engine.
 
 Capability extension beyond the reference (which offers only complex/real
-FFTs): the scipy.fft dct/idct surface, computed the TPU way — batched FFTs of
+FFTs): the scipy.fft dct/idct surface, computed for the device — batched FFTs of
 reordered/extended sequences plus fused twiddle passes:
 
     DCT-I:   even extension of length 2(N−1), real part of its FFT

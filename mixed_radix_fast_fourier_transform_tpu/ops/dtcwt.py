@@ -34,8 +34,8 @@ bank on both trees with tree b delayed one full sample (the standard
 dual-tree level-1 construction; at half the rate a one-sample input delay
 is the required half-sample coefficient offset).
 
-TPU-native shape: identical to ops/dwt.py — host-precomputed periodic
-window gathers contracted on the MXU (one einsum per tree per level), no
+Device shape: identical to ops/dwt.py — host-precomputed periodic
+window gathers contracted as matmuls (one einsum per tree per level), no
 recursion over samples, no scatter.  All filter constants are host numpy
 (plan-constants convention).
 """

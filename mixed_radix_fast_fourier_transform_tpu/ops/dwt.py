@@ -4,7 +4,7 @@ Capability extension beyond the reference C library: the multiresolution
 counterpart of its Fourier transforms — Daubechies / CDF analysis-synthesis
 with perfect reconstruction, the compression/denoising workhorse.
 
-TPU-native shape: no recursion over samples and no scatter.  Analysis is a
+Device shape: no recursion over samples and no scatter.  Analysis is a
 host-precomputed window gather (L, F) contracted against the filter pair
 (one einsum); synthesis uses the polyphase form — even/odd output samples
 are correlations of the coefficient vectors with the even/odd synthesis
@@ -455,7 +455,7 @@ def dwt(
 def periodized_astep(x, filt: np.ndarray, config: SpectralConfig):
     """One periodized analysis level along the last axis with a stacked
     (2, F) decimating filter bank: (…, N) -> ((…, N/2), (…, N/2)) via the
-    window-gather einsum.  The MXU-critical analysis kernel shared by
+    window-gather einsum.  The matmul-critical analysis kernel shared by
     ``dwt(mode="periodization")`` and the dual-tree transform
     (:mod:`.dtcwt`)."""
     n = x.shape[-1]

@@ -484,7 +484,7 @@ def decompose(
     activations (frames, k) @ components (k, bins), both nonnegative.
 
     Lee-Seung multiplicative updates for the Euclidean objective — a
-    lax.fori_loop of six MXU matmuls per iteration, jittable end to end;
+    lax.fori_loop of six matmuls per iteration, jittable end to end;
     ``key`` (jax PRNG, default PRNGKey(0)) seeds the nonnegative init."""
     S = jnp.asarray(S)
     if S.ndim != 2:
@@ -652,8 +652,8 @@ def lpc(y, order: int, axis: int = -1) -> Array:
     summed forward+backward prediction error.  The all-pole spectral
     envelope is ``1/|A(e^{jw})|²`` (evaluate with :func:`freqz`).
 
-    TPU shape: ``order`` is static and small, so the Burg recursion
-    unrolls at trace time — each step is batched elementwise VPU work over
+    Device shape: ``order`` is static and small, so the Burg recursion
+    unrolls at trace time — each step is batched elementwise work over
     the signal axis (two AXPYs + three reductions); there is no per-sample
     sequential scan.  A zero signal returns a[1:] = 0 instead of raising
     (librosa propagates a FloatingPointError from the 0/0)."""

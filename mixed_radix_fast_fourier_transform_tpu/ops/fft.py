@@ -6,7 +6,7 @@ user-facing pair is `fft_init` + `fft_exec` with an *unnormalized* inverse
 src/real.c:331-335) — that exact contract lives in
 :mod:`..compat`; this module exposes the numpy-style normalized API most
 users expect.  Every length N >= 1 is supported: smooth lengths run the
-mixed-radix MXU engine, the rest run Bluestein (the reference crashes or is
+mixed-radix matmul engine, the rest run Bluestein (the reference crashes or is
 silently wrong on many lengths — SURVEY.md §2.9).
 """
 
@@ -129,7 +129,7 @@ def fftn(
     config: SpectralConfig = DEFAULT_CONFIG,
 ) -> Array:
     """N-D FFT as separable 1-D transforms (the reference is 1-D only; this is
-    a capability extension, built the TPU way: each axis pass is a batched
+    a capability extension, built for the device: each axis pass is a batched
     matmul pipeline)."""
     x = jnp.asarray(x)
     s, axes = _axes_shape(x, s, axes)

@@ -9,7 +9,7 @@ average the frequency-domain triple products
 over frames.  The triple product is a static outer product plus one static
 index map for X(f1+f2) — no data-dependent control flow, so the whole
 estimator jits into a single fused program; the averaging contraction runs
-on the MXU.  Quadratic phase coupling (three tones at f1, f2, f1+f2 with
+as matmuls.  Quadratic phase coupling (three tones at f1, f2, f1+f2 with
 phases φ1, φ2, φ1+φ2) shows up as |bicoherence| → 1 at (f1, f2); independent
 phases average to 0 — the classic nonlinearity test a power spectrum cannot
 perform, since it discards phase.

@@ -1,4 +1,4 @@
-"""IIR filter design and TPU-parallel recursive filtering.
+"""IIR filter design and parallel recursive filtering.
 
 Design (host numpy fp64, plan-constant convention): analog prototypes —
 Butterworth, Chebyshev I/II, elliptic (Cauer) via Landen-recursion Jacobi
@@ -11,7 +11,7 @@ Application (device): ``sosfilt``/``lfilter`` run the transposed
 direct-form-II state recurrence ``s[n] = A·s[n-1] + B·x[n]`` as a
 ``lax.associative_scan`` over (matrix, vector) pairs — log-depth, batched,
 jittable.  Recursive filtering is serial only in its textbook form; the
-linear recurrence is associative, so on TPU it parallelizes the same way a
+linear recurrence is associative, so on an accelerator it parallelizes the same way a
 prefix sum does.  ``filtfilt``/``sosfiltfilt`` add scipy's odd-extension
 zero-phase pass on top.
 
@@ -996,10 +996,11 @@ def _recurrence_scan(A: np.ndarray, c: Array, s0: Array) -> Array:
     M = jnp.broadcast_to(Ad, (n,) + c.shape[1:-1] + (p, p))
 
     def combine(x, y):
-        # HIGHEST is load-bearing on TPU: default-precision matmuls take
-        # bf16 operand paths whose ~1e-3 per-product error COMPOUNDS over
-        # the log2(n) combine levels (measured on v5e: butter6 sosfilt at
-        # n=65536 went 8.9e-3 rel err vs scipy -> fp32 class with HIGHEST).
+        # HIGHEST is load-bearing: default-precision matmuls may take
+        # reduced-precision operand paths (bf16, or TF32 on GPU tensor
+        # cores) whose ~1e-3 per-product error COMPOUNDS over the log2(n)
+        # combine levels (butter6 sosfilt at n=65536 reached 8.9e-3 rel err
+        # vs scipy with bf16 operands; fp32 class with HIGHEST).
         M1, v1 = x
         M2, v2 = y
         return (jnp.matmul(M2, M1, precision=hp),
@@ -1054,9 +1055,9 @@ def lfilter(b, a, x, axis: int = -1, zi: Optional[Array] = None,
             *, config: SpectralConfig = DEFAULT_CONFIG):
     """Causal IIR/FIR filtering, scipy.signal.lfilter semantics.
 
-    FIR (``len(a) == 1``) runs as a direct MXU convolution; IIR runs the
+    FIR (``len(a) == 1``) runs as a direct convolution; IIR runs the
     order-p transposed-DF2 recurrence as one associative scan (log-depth —
-    the TPU-native form of "recursive" filtering).  ``zi`` (shape (..., p))
+    the parallel form of "recursive" filtering).  ``zi`` (shape (..., p))
     switches the return to ``(y, zf)``.  Filter coefficients must be
     concrete (host) values — they become plan-style numpy constants.
     """

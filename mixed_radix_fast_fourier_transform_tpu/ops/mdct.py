@@ -10,9 +10,9 @@ and 50%-overlapped frames reconstruct exactly (time-domain alias
 cancellation) whenever the window satisfies the Princen-Bradley condition
 w[n]^2 + w[n+N]^2 = 1.
 
-TPU-native shape: the O(4N^2) cosine sum folds into a length-N DCT-IV
+Device shape: the O(4N^2) cosine sum folds into a length-N DCT-IV
 (u = [-rev(c) - d, a - rev(b)] over the frame's quarters a|b|c|d), which
-``ops.dct`` already evaluates as batched MXU stage matmuls through the FFT
+``ops.dct`` already evaluates as batched stage matmuls through the FFT
 engine — so an entire (batch, frames, 2N) tensor runs as one fused pipeline:
 strided gather -> fold (pure slicing) -> DCT-IV -> scale.  The inverse is the
 same DCT-IV followed by the alias-symmetric unfold and an overlap-add that is

@@ -2,7 +2,7 @@
 
 The standard speech/audio front end, built on the engine's STFT and DCT:
 a host-generated (n_mels, n_fft//2+1) triangular filterbank applied as one
-MXU matmul over the power spectrogram, then a log and a type-II DCT for
+matmul over the power spectrogram, then a log and a type-II DCT for
 cepstral coefficients.  Conventions follow librosa's defaults (Slaney-style
 mel scale and filter normalization, HTK formula available) so feature
 pipelines port directly; the filterbank is an lru-cached host constant
@@ -142,7 +142,7 @@ def melspectrogram(
     """Mel-scaled spectrogram: (…, T) -> (…, n_frames, n_mels).
 
     |STFT|^power contracted against the mel filterbank — one batched frame
-    rfft (the engine) plus one (bins, n_mels) MXU matmul."""
+    rfft (the engine) plus one (bins, n_mels) matmul."""
     x = jnp.asarray(x)
     if jnp.issubdtype(x.dtype, jnp.complexfloating):
         raise ValueError("melspectrogram expects a real signal")
@@ -285,9 +285,9 @@ def mel_to_stft(
     (…, frames, n_mels) -> (…, frames, n_fft//2+1) — librosa
     ``feature.inverse.mel_to_stft`` semantics (its NNLS step).
 
-    NNLS per frame, TPU shape: initialize at the clipped pseudo-inverse
+    NNLS per frame; device shape: initialize at the clipped pseudo-inverse
     solution (one host pinv of the small (n_mels, bins) filterbank, one
-    MXU matmul) and refine with ``n_iter`` projected-gradient steps at the
+    matmul) and refine with ``n_iter`` projected-gradient steps at the
     exact Lipschitz rate 1/||F Fᵀ||₂ — a lax.fori_loop of two matmuls per
     step, jittable end to end."""
     M = jnp.asarray(M)
@@ -395,7 +395,7 @@ def hpss(
     ``kernel_size`` and ``margin`` take scalars or (harmonic,
     percussive) pairs.  Returns ``(S_harmonic, S_percussive)`` with the
     dtype of ``S`` (complex in, complex out — run istft after to get the
-    separated signals).  TPU shape: two static window gathers +
+    separated signals).  Device shape: two static window gathers +
     jnp.median reductions and elementwise masks; no data-dependent
     control flow."""
     S = jnp.asarray(S)
@@ -519,7 +519,7 @@ def yin(
     2002; librosa.yin conventions): (…, T) -> f0 in Hz per frame
     (…, n_frames), frame m centered on sample m·hop.
 
-    TPU shape: the difference function d(τ) = Σ_j (x_j − x_{j+τ})²
+    Device shape: the difference function d(τ) = Σ_j (x_j − x_{j+τ})²
     evaluates per frame as sliding energies (one cumsum) plus a cross
     term computed with ONE batched engine rfft/irfft correlation — no
     lag loop; the cumulative-mean normalization is a cumsum; the

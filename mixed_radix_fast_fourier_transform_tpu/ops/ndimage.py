@@ -9,7 +9,7 @@ original length ``n``.  Composing with this library's fft/rfft families
 gives convolution-by-kernel without ever materializing the kernel in real
 space.
 
-TPU shape: the separable filters (gaussian, uniform) apply as ndim
+Device shape: the separable filters (gaussian, uniform) apply as ndim
 broadcasted 1-D host-constant multiplies — XLA fuses them into a single
 elementwise pass over the spectrum; the ellipsoid's radial transfer
 function is a host fp64 grid evaluated once per (shape, size) and baked
@@ -176,7 +176,7 @@ def wiener(x, mysize=3, noise=None,
     out = μ + max(σ²−ν, 0)/max(σ², ν)·(x−μ) with μ/σ² the local window
     statistics and ν the noise power (mean local variance when None).
 
-    TPU shape: the box statistics are one cumsum-difference per axis —
+    Device shape: the box statistics are one cumsum-difference per axis —
     no gather windows, no sorting."""
     x = jnp.asarray(x)
     if x.ndim < 1:

@@ -1,4 +1,4 @@
-"""Non-uniform FFTs (NUFFT types 1, 2, 3) — TPU-native.
+"""Non-uniform FFTs (NUFFT types 1, 2, 3).
 
 Capability extension beyond the reference C library (uniform grids only):
 transforms between non-equispaced sample points and regular Fourier modes,
@@ -15,10 +15,10 @@ defaults isign=-1 for type 1 / type 3 (forward-like, matching this library's
 FFT sign) and isign=+1 for type 2 (synthesis-like).  For equispaced
 x[j] = 2*pi*j/N, type 1 with isign=-1 reduces to fftshift(fft(c)).
 
-Two TPU execution strategies, selected by ``method``:
+Two execution strategies, selected by ``method``:
 
-* ``"dense"`` — the exact NUDFT as one complex matmul on the MXU.  O(N·M)
-  flops, but that is precisely the shape the hardware wants: for the small /
+* ``"dense"`` — the exact NUDFT as one complex matmul.  O(N·M)
+  flops, but that is precisely the shape a matrix unit wants: for the small /
   medium problems where the matrix fits comfortably (the ``"auto"``
   threshold), the dense matmul is both exact and fastest.  Phases are
   computed with an error-free fp32 reduction (Veltkamp-split head+tail of
@@ -31,10 +31,9 @@ Two TPU execution strategies, selected by ``method``:
   oversampled grid, run the library's uniform FFT, and deconvolve by the
   kernel's transform sqrt(4·pi·tau)·e^{-k^2·tau}.  Spreading is
   **scatter-free**: per-point local tap images contract against a
-  (point -> grid block) one-hot matrix on the MXU and overlapping block
+  (point -> grid block) one-hot matrix as matmuls and overlapping block
   halos fold back with static rolls (:func:`_block_local` /
-  :func:`_halo_to_grid`) — measured 11 us at M=4096 in 1-D vs 4.6 ms for
-  the scatter-add it replaced (v5e, 2026-08-17).  O(M·msp + sigma·N·log N)
+  :func:`_halo_to_grid`), replacing a scatter-add.  O(M·msp + sigma·N·log N)
   — the large-scale path.  tau = pi·msp/(N^2·sigma·(sigma-0.5)); measured
   accuracy (fp64 prototype): msp 4 -> 7e-5, 6 -> 1.5e-6, 8 -> 1.4e-8
   relative.
@@ -62,16 +61,9 @@ Array = jax.Array
 _TWO_PI = 2.0 * math.pi
 # dense phase split: u = x/2pi rounded to 1/_SPLIT; k*_SPLIT*u exact in int32
 _SPLIT = 4096
-# auto method thresholds: dense matmul up to this many matrix entries.
-# Re-measured on v5e (2026-08-17) after the block-matmul spreading landed
-# (scatter-free — see _block_local): 1-D grid is at parity with dense at
-# (n, M) = (1024, 1024) (10 vs 25 us) and 11.6x faster at (2048, 1024);
-# at (4096, 4096) grid wins 22x (24 us vs 533 us; the old scatter spread
-# took 4.6 ms there).  Crossover ~2^20 entries.  2-D keeps its own larger
-# window: at (n1, n2, M) = (256, 256, 2048) — the n1·n2·M = 2^27 ceiling —
-# dense still wins 1.5x (190 us vs 264 us grid; the old scatter took
-# 36.8 ms), so the 2^27 boundary stands.  3-D still spreads by scatter and
-# keeps the pre-rework 2^24 dense allowance.
+# auto method thresholds: dense matmul up to this many matrix entries
+# (1-D 2^20, 2-D 2^27, 3-D 2^24).  Inherited crossovers from the library's
+# first accelerator, not measured on the H100 (ROADMAP S7).
 _DENSE_MAX_ENTRIES = 1 << 20
 _DENSE_MAX_ENTRIES_2D = 1 << 27
 _DENSE_MAX_ENTRIES_3D = 1 << 24
@@ -154,7 +146,7 @@ def nudft1(
     isign: int = -1,
     config: SpectralConfig = DEFAULT_CONFIG,
 ) -> Array:
-    """Exact type-1 NUDFT as a dense MXU matmul: (…, M) -> (…, n_modes)."""
+    """Exact type-1 NUDFT as a dense matmul: (…, M) -> (…, n_modes)."""
     x = jnp.asarray(x)
     c = jnp.asarray(c)
     if x.ndim != 1 or x.shape[0] < 1:
@@ -186,7 +178,7 @@ def nudft2(
     isign: int = +1,
     config: SpectralConfig = DEFAULT_CONFIG,
 ) -> Array:
-    """Exact type-2 NUDFT as a dense MXU matmul: (…, n_modes) -> (…, M)."""
+    """Exact type-2 NUDFT as a dense matmul: (…, n_modes) -> (…, M)."""
     x = jnp.asarray(x)
     f = jnp.asarray(f)
     if x.ndim != 1 or x.shape[0] < 1:
@@ -218,7 +210,7 @@ def _grid_params(n_modes: int, eps: float):
     # (pure exponent shift), so the head+tail point representation survives
     # the map to grid coordinates — without this, fp32 cell-position error
     # (~x·2^-24 / h) rounds results at the k_max·2pi·2^-24 ~ 1e-4 level for
-    # n_modes ~ 4096 (measured on TPU before the fix).  Pow2 is also the
+    # n_modes ~ 4096 (seen before the fix).  Pow2 is also the
     # engine's best-planned FFT length.
     mr = 1 << (2 * n_modes - 1).bit_length()
     sigma = mr / n_modes
@@ -334,9 +326,8 @@ def _type3_fast_wins(eps: float, d: int, m: int, k: int, sx) -> bool:
     The Lee-Greengard fast path's work is set by the SPACE-BANDWIDTH
     products S·X per axis (inner mode counts n_i ≈ 2σ·S·X/π), NOT by M or
     K — so at large S·X it loses to the dense (K, M) phase matmul by
-    orders of magnitude (measured round 5 on v5e: 435 ms fast vs ms-class
-    dense at M=K=4096 with S·X = 1024π per axis, where the inner grid is
-    ~16384²), while at large M·K with modest S·X the dense matrix does not
+    orders of magnitude (at M=K=4096 with S·X = 1024π per axis the inner
+    grid is ~16384²), while at large M·K with modest S·X the dense matrix does not
     even fit (M=K=65536 → 4.3e9 entries) and fast runs in ms.  Model:
       dense ≈ 30·K·M   (two trig sweeps + 8 matmul flops per entry)
       fast  ≈ 10·G·log2 G + 100·(M+K)·(2·msp)^d
@@ -368,9 +359,8 @@ def _deconv(n_modes: int, mr: int, tau: float) -> np.ndarray:
 
 # Grid cells per block in the matmul spreading path.  Each point's 2·msp
 # taps land in a window of Ls = block + 2·msp − 1 cells anchored at its
-# block, so spreading becomes (point → block) one-hot matmuls — MXU work
-# instead of the scatter-add that made gridding M-bound on TPU (measured
-# 4.6 ms at M=4096 in 1-D, 36.8 ms at M=2048 in 2-D; see VERDICT r2 §2).
+# block, so spreading becomes (point → block) one-hot matmuls instead of
+# a scatter-add, whose cost grows with M.
 _SPREAD_BLOCK = 32
 # Point-chunk of the scanned one-hot contractions: bounds the live
 # (chunk, nb) one-hot and (chunk, ΠLs) local-image footprint at large M.
@@ -566,19 +556,13 @@ def _spread_scatter_small(x, c, mr, tau, msp) -> Array:
 # the per-cell sums are segment sums over the sorted strengths — a
 # double-word prefix sum plus an error-free boundary difference.  The cost
 # is independent of the grid/block geometry, vs the block-matmul path's
-# O(M·nb·Ls^d) MXU flops which grow with the block count at large grids.
+# O(M·nb·Ls^d) matmul flops which grow with the block count at large grids.
 #
-# MEASURED DEAD END on TPU v5e (2026-08-17, tools/tune.py sortspread,
-# interleaved A/B at mr=8192, msp=8): block 717 us vs sorted 14.9 ms at
-# M=2^16 (0.047x) and block 1.26 ms vs sorted 20.8 ms at M=2^17 (0.060x) —
-# the device argsort (bitonic-class) and the 2·msp associative-scan passes
-# are VPU/log-pass-bound while the block path rides the MXU; the ratio
-# improves only ~linearly-slowly with M, nowhere near a crossover.  On CPU
-# the ranking flips (sorted 1.33x at M=8192) but the CPU lane is not the
-# perf target.  Auto-dispatch is therefore DISABLED (thresholds below are
-# "never"); the engine stays as an opt-in (`method`-independent, set
-# _SORTED_MIN_M yourself) bounded-memory fallback and as the reference
-# implementation the block path is tested against.
+# Auto-dispatch is DISABLED (thresholds below are "never"): on the
+# library's first accelerator the block path won by ~20x; the sorted
+# spreader has not been measured on the H100 (ROADMAP S7).  It stays as an
+# opt-in (set _SORTED_MIN_M yourself) bounded-memory fallback and as the
+# reference implementation the block path is tested against.
 #
 # fp32 NOTE: a plain cumsum-difference would lose ~M·eps relative accuracy
 # (prefix magnitude ~M·mean vs O(segment) results); the (hi, lo) carry
@@ -586,7 +570,7 @@ def _spread_scatter_small(x, c, mr, tau, msp) -> Array:
 # result (measured: sorted == block path to ~5e-7 end-to-end at M=4·10^4).
 # ---------------------------------------------------------------------------
 
-_SORTED_NEVER = 1 << 62  # auto-dispatch disabled (measured: block wins on TPU)
+_SORTED_NEVER = 1 << 62  # auto-dispatch disabled
 _SORTED_MIN_M = _SORTED_NEVER
 _SORTED_MIN_M_2D = _SORTED_NEVER
 
@@ -710,8 +694,8 @@ def _spread(x: Array, c: Array, mr: int, tau: float, msp: int) -> Array:
 def _spread_2d(x, y, c, mrs, taus, msp: int) -> Array:
     """2-D Gaussian spreading as one block one-hot matmul: the separable
     per-point local images A1 ⊗ A2 (strengths folded in) contract against a
-    combined (b1·nb2 + b2) block one-hot — O(M·nb·Ls²) MXU work replacing
-    the 4·msp²-taps-per-point scatter that measured 36.8 ms at M=2048."""
+    combined (b1·nb2 + b2) block one-hot — O(M·nb·Ls²) work replacing
+    the 4·msp²-taps-per-point scatter."""
     mr1, mr2 = mrs
     tau1, tau2 = taus
     s1 = _block_size(mr1, _SPREAD_BLOCK, 2)
@@ -756,8 +740,7 @@ def _spread_3d(x, y, z, c, mrs, taus, msp: int):
     trades one-hot width against local-image volume; the per-axis block
     count is capped at _MAX_BLOCKS[3] so the halo stays a small multiple of
     the grid).  Structurally this does ~Π(1+2msp/s_i)-fold more arithmetic
-    than the dense NUDFT (measured 10-50x slower below the dense memory
-    wall), so it is the past-the-wall path; the auto dispatch keeps dense
+    than the dense NUDFT, so it is the past-the-wall path; the auto dispatch keeps dense
     to 2^24 entries.  Returns None when the grid is too small for the
     block scheme (caller falls back to scatter)."""
     mr1, mr2, mr3 = mrs
@@ -803,10 +786,9 @@ def _grid_halo(u: Array, s: int, msp: int, mr: int) -> Array:
 def _interp(u: Array, x: Array, mr: int, tau: float, msp: int) -> Array:
     """Gaussian interpolation of grid values ``u`` (…, mr) at the points —
     the linear adjoint of :func:`_spread`, computed the same way: block
-    halos of the grid contract against the point->block one-hot on the MXU,
-    then the per-point local tap image reduces elementwise.  Replaces the
-    dynamic gather that made the type-2 grid path interp-bound (measured
-    ~900 us at (4096, 4096) on v5e vs ~30 us matmul-formulated)."""
+    halos of the grid contract against the point->block one-hot as matmuls,
+    then the per-point local tap image reduces elementwise.  Replaces a
+    dynamic gather of the taps."""
     s = _block_size(mr, _SPREAD_BLOCK, 1)
     if s < msp:  # tiny grid: dynamic gather is fine
         idx, w = _spread_geometry(x, mr, tau, msp)
@@ -851,7 +833,7 @@ def nufft1(
     """Type-1 NUFFT: strengths at points -> centered Fourier modes.
 
     method "dense" (exact matmul), "grid" (Gaussian gridding + uniform FFT)
-    or "auto" (dense while n_modes·M fits the MXU comfortably).
+    or "auto" (dense while n_modes·M fits device memory comfortably).
     """
     x = jnp.asarray(x)
     c = jnp.asarray(c)
@@ -925,7 +907,7 @@ def nufft3(
     e^{isign·i·s[i]·x[j]}.
 
     method "dense" (default): the exact matmul — O(M·K) flops, the right
-    shape for the MXU up to the memory wall (~10^4 x 10^4 points); phases
+    shape for matmuls up to the memory wall (~10^4 x 10^4 points); phases
     are fp32 products of arbitrary reals, so accuracy degrades once
     |s·x| >> 1e4.  method "fast": the two-Gaussian Lee-Greengard
     composition — pre-deconvolve strengths by e^{rho·x^2}, evaluate the
@@ -984,7 +966,7 @@ def nufft3(
 
 # ---------------------------------------------------------------------------
 # 2-D NUFFT (types 1 and 2) — the MRI / imaging shape.  Same two strategies:
-# dense runs as a pair of chained MXU contractions (never materializing the
+# dense runs as a pair of chained contractions (never materializing the
 # (n1·n2, M) matrix), grid spreads separable Gaussian taps into a pow2
 # oversampled 2-D grid and runs the engine's fft2.
 # ---------------------------------------------------------------------------
@@ -1222,7 +1204,7 @@ def nufft_lsq(
     — the inverse problem of :func:`nufft2`, the core of MRI reconstruction
     and spectral estimation from scattered data.
 
-    TPU-native shape: the normal-equations operator A^H W A is TOEPLITZ
+    Device shape: the normal-equations operator A^H W A is TOEPLITZ
     (entry (k,l) depends only on k-l), so it embeds in a circulant of length
     2·n_modes and applying it is one padded forward+inverse engine FFT.
     Conjugate gradient then runs a fixed ``iters`` sweep under ``lax.scan``
@@ -1683,7 +1665,7 @@ def nufft3_2d(
     for arbitrary source points (x, y) and arbitrary target frequencies
     (s, t).
 
-    method "dense" (default): the exact (K, M) phase matmul — MXU-shaped to
+    method "dense" (default): the exact (K, M) phase matmul — matmul-shaped to
     ~10^4 x 10^4.  method "fast": the separable Lee-Greengard composition
     (the 2-D analogue of :func:`nufft3`'s fast path): centre both coordinate
     pairs, pre-deconvolve strengths by the product Gaussian
@@ -1763,15 +1745,10 @@ def nufft3_2d(
         h1 * xc, h2 * yc, beta, (n1, n2), isign=isign, eps=eps, config=config
     )  # (n1, n2) centered modes
     # Separable Gaussian interpolation at the K targets: dynamic tap GATHER,
-    # not the _interp_2d block-matmul adjoint.  Round 4 rewrote this stage
-    # onto _interp_2d riding the type-2 grid result (gather 952 us -> matmul
-    # 184 us), but type 3's target stage is the opposite regime: K sparse
-    # targets on a LARGE pow2-padded mode grid (m=4096 -> ~8192^2 after
-    # padding), and the one-hot matmul's cost scales with the grid while the
-    # gather's scales with K*P^2.  Measured on chip (round 5): matmul form
-    # 494.9 ms/transform at (4096,4096) (BENCH_DETAIL round-5 scoreboard) vs
-    # ~15 ms for this gather form (round-3 record, same class); an 18x
-    # gather win at (256,256) on CPU (tools/tune.py nufft3i).
+    # not the _interp_2d block-matmul adjoint.  Type 3's target stage has K
+    # sparse targets on a LARGE pow2-padded mode grid (m=4096 -> ~8192^2
+    # after padding): the one-hot matmul's cost scales with the grid while
+    # the gather's scales with K*P^2.
     taps = np.arange(-msp + 1, msp + 1, dtype=np.int32)
     i1 = jnp.round(sc / h1).astype(jnp.int32)
     i2 = jnp.round(tc / h2).astype(jnp.int32)
@@ -1788,7 +1765,7 @@ def nufft3_2d(
     vals = jnp.take(flat, lin.reshape(-1), axis=-1).reshape(
         B.shape[:-2] + lin.shape
     )  # (…, K, P, P)
-    # planes (see nufft3_3d: complex x real multi-operand einsum is a TPU
+    # planes (see nufft3_3d: complex x real multi-operand einsum is a
     # compiler hazard)
     wdt = jnp.real(vals).dtype
     w1, w2 = w1.astype(wdt), w2.astype(wdt)
@@ -1934,7 +1911,7 @@ def nufft3_3d(
     vals = jnp.take(flat, lin.reshape(-1), axis=-1).reshape(
         B.shape[:-3] + lin.shape
     )  # (…, K, P, P, P)
-    # planes: a >2-operand complex x real einsum SIGABRTs the TPU compiler
+    # planes: a >2-operand complex x real einsum has crashed XLA compilers
     # (X64Rewriter ElementIsComplex check) — run the real contraction twice
     wdt = jnp.real(vals).dtype
     w1, w2, w3 = (w.astype(wdt) for w in (w1, w2, w3))

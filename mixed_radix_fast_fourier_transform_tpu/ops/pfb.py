@@ -11,10 +11,10 @@ Compared with a bare FFT spectrogram the PFB's channel response is flat
 in-band with far lower leakage (the prototype's stopband), at the cost of
 P− 1 frames of latency.
 
-TPU shape: the signal reshapes into (frames, P, K) windows, the polyphase
+Device shape: the signal reshapes into (frames, P, K) windows, the polyphase
 weighting is one broadcast multiply + reduction over P that XLA fuses into
-the frame load (VPU), and the channel transform is the engine's batched
-length-K FFT (MXU stage matmuls).  The prototype filter is a host fp64
+the frame load (elementwise), and the channel transform is the engine's batched
+length-K FFT (stage matmuls).  The prototype filter is a host fp64
 constant, like twiddles (CLAUDE.md conventions).
 """
 
@@ -193,7 +193,7 @@ def pfb_synthesis(
     channel FFT (one batched engine IFFT), then divides by the branch
     spectra along the FRAME axis with Tikhonov floor ``eps``
     (H̄/(|H|²+eps·max|H|²)) — all K branch deconvolutions ride ONE batched
-    engine FFT pair (MXU stage matmuls); branch spectra are host fp64
+    engine FFT pair (stage matmuls); branch spectra are host fp64
     plan constants.
 
     The fractional-delay branches dip to ~0.04 of peak gain at block-

@@ -1,7 +1,7 @@
 """Radar signal processing: pulse compression, range–Doppler maps, CFAR.
 
 Capability extension (the reference C library has none): the standard
-pulse-Doppler processing chain.  Every stage is engine work the MXU loves —
+pulse-Doppler processing chain.  Every stage is engine work matrix units love —
 pulse compression is one batched frequency-domain matched filter (two
 engine FFTs), the Doppler dimension is one more batched FFT, and CFAR
 training-cell means are box sums computed by cumulative sums (static

@@ -5,7 +5,7 @@ registration algorithms": the integer shift comes from the peak of the
 inverse FFT of the cross-power spectrum; the subpixel refinement evaluates
 an UPSAMPLED DFT of the cross-power spectrum only in a small neighborhood
 of the coarse peak — as two dense matrix-DFT contractions (the matrix
-product IS the upsampling), which on TPU is exactly the MXU shape.  No
+product IS the upsampling), which is exactly a matmul shape.  No
 zero-padded giant FFT is ever built.
 
 skimage.registration.phase_cross_correlation conventions: the returned

@@ -1,6 +1,6 @@
 """Packed real FFT: rfft / irfft (L3 of the reference).
 
-TPU-native replacement for `fft_real_init` / `fft_r2c_exec` / `fft_c2r_exec`
+Replacement for `fft_real_init` / `fft_r2c_exec` / `fft_c2r_exec`
 (reference: src/real.c:26-193).  Same packed algorithm — an N-point real
 transform via an (N/2)-point complex transform plus a split/merge pass — but:
 

@@ -10,7 +10,7 @@ the first order, 1 per octave for the second — the standard economy: the
 modulus envelope of a bandpass signal is lowpass, so fine second-order
 resolution buys nothing) and φ a Gaussian lowpass at scale 2^J.
 
-TPU shape: ONE signal FFT; every filter is a host fp64 spectral window
+Device shape: ONE signal FFT; every filter is a host fp64 spectral window
 applied as a broadcast multiply; each order is a batched engine ifft;
 the invariant averaging is one more spectral multiply and a static
 stride.  No loops over wavelets — the bank is one (n_filters, T)

@@ -2,10 +2,10 @@
 
 scipy.signal.ShortTimeFFT-compatible surface (scipy 1.17 semantics: centered
 slices ``p·hop − m_num//2``, canonical dual-window inversion, border index
-arithmetic) re-built TPU-first: where scipy loops a Python generator over
+arithmetic) re-built device-first: where scipy loops a Python generator over
 slices and FFTs them one at a time, this class extracts every frame with one
 static gather and runs ONE batched engine transform (ops.fft/ops.rfft) over
-the frame axis — the shape the MXU stage matmuls want.  Overlap-add inversion
+the frame axis — the shape the stage matmuls want.  Overlap-add inversion
 is one scatter-add with a host-precomputed index table.
 
 Window/dual-window math (`check_COLA`, `check_NOLA`,

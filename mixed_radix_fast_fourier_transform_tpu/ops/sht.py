@@ -1,14 +1,14 @@
-"""Spherical harmonic transform — Legendre matmuls on the MXU + engine FFT.
+"""Spherical harmonic transform — Legendre matmuls + engine FFT.
 
 Capability extension beyond the reference C library (1-D line transforms
 only): the analysis/synthesis pair between values on a Gauss-Legendre x
 equiangular sphere grid and spherical-harmonic coefficients — the spectral
 basis of global weather/climate dynamical cores and geodesy.
 
-TPU-native shape: the longitude direction is the engine's batched FFT; the
+Device shape: the longitude direction is the engine's batched FFT; the
 latitude direction contracts against precomputed normalized associated
 Legendre tables P̄_{lm}(mu_i) (stable three-term recurrence, Condon-Shortley
-phase, matching scipy.special.sph_harm_y) applied as MXU einsums.  The
+phase, matching scipy.special.sph_harm_y) applied as einsums.  The
 tables are stored **triangularly chunked over m for the m >= 0 half only**
 (P̄_{l,-m} = (-1)^m P̄_{lm} folds the negative-m bins into sign flips on the
 coefficients, and rows with l < m are identically zero) — ~L³/2 fp32 values
@@ -18,11 +18,8 @@ generation.  With
 nlat = L Gauss-Legendre nodes and nlon = 2L longitudes the transform pair
 is EXACT for band-limited fields (Gauss quadrature integrates the degree
 <= 2L-2 Legendre products exactly; round-trip error ~6e-15 in the fp64
-prototype, engine fp32 floor otherwise).  Measured on one v5e chip
-(2026-08-17, chunked tables): a batch-16 analysis+synthesis round trip
-runs 81 us at L = 128 (~5.1 us per field pair — 2.3x the round-2 dense
-layout) and 1.36 ms at L = 256 (85 us per field pair), projection error
-~1.6e-7.
+prototype, engine fp32 floor otherwise; projection error ~1.6e-7 with
+the chunked tables).
 
 Three execution paths: the chunked tables (default, fastest, ~L³/2 fp32
 storage — practical to ~L=1024); the REAL-field Hermitian fast paths
@@ -57,7 +54,7 @@ Array = jax.Array
 _M_TILE = 128
 # Band limit above which sht/isht auto-dispatch to the O(L^2)-memory
 # recurrence path: the chunked tables reach ~2.1 GB fp32 at L = 1024;
-# beyond that the (17x slower but memory-flat) scan is the only option.
+# beyond that the (slower but memory-flat) scan is the only option.
 _TABLES_MAX_L = 1024
 
 
@@ -737,7 +734,7 @@ def _legendre_scan(
     latitude); with ``compensated`` the tuple extends to
     (mu, mant, k0, mu_lo, mant_lo).  ``compensated`` carries the Legendre
     plane as a double-word (hi, lo) fp32 pair with double-word constants —
-    fp32-exact at any L, ~5-10x the VPU work of the plain scan."""
+    fp32-exact at any L, ~5-10x the elementwise work of the plain scan."""
     A, B, mant, k0, mu = _recurrence_coeffs(L)
     if compensated:
         A_lo, B_lo, mant_lo, mu_lo = _recurrence_coeffs_dw(L)
@@ -826,7 +823,7 @@ def sht_recurrence(
     :func:`sht`; use for L where the chunked tables no longer fit).
     ``compensated=True`` runs the scan with a double-word carry: fp32-exact
     coefficients at any L (the plain fp32 scan drifts ~L·eps: 3.2e-5 at
-    L=256, 1.6e-4 at L=512) for ~5-10x the VPU work."""
+    L=256, 1.6e-4 at L=512) for ~5-10x the elementwise work."""
     f = jnp.asarray(f)
     if f.ndim < 2 or f.shape[-2] < 1 or f.shape[-1] != 2 * f.shape[-2]:
         raise ValueError("f must be (…, L, 2L) on the sht_grid")
@@ -935,7 +932,7 @@ def isht_recurrence(
 # degree.  Host builds the REAL Wigner-d(beta) stack (the alpha/gamma Euler
 # phases are separable e^{-i m phi} diagonals applied on device), device
 # applies one dense (L, 2L-1, 2L-1) einsum — ragged (2l+1)-blocks zero-padded
-# into one MXU contraction, the same layout trade as the Legendre tables.
+# into one contraction, the same layout trade as the Legendre tables.
 # ---------------------------------------------------------------------------
 
 

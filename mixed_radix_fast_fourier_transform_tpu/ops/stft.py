@@ -1,7 +1,7 @@
 """Short-time Fourier transform family: stft / istft / spectrogram.
 
 Capability extension beyond the reference (which offers only single-shot
-transforms and convolution) — built the TPU way: framing is a reshape/gather
+transforms and convolution) — built for the device: framing is a reshape/gather
 into a (frames, nperseg) batch, the window multiply fuses into the rFFT's
 first stage matmul, and the whole thing is one batched matmul pipeline.
 istft uses windowed overlap-add with the standard NOLA normalization.
@@ -512,7 +512,7 @@ def phase_vocoder(
     ``rate`` (>1 speeds up) — librosa.phase_vocoder (Flanagan-Golden with
     phase accumulation).
 
-    TPU shape: the fractional read positions are HOST constants (rate and
+    Device shape: the fractional read positions are HOST constants (rate and
     the frame count are static), so the two source frames per output step
     are one static gather; the only sequential part — phase accumulation —
     is a lax.scan over output frames of pure elementwise work."""

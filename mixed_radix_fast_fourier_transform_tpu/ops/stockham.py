@@ -1,16 +1,16 @@
 """Mixed-radix complex FFT engine (L2-hot-path of the reference).
 
-TPU-native replacement for `mixed_radix_dit_rec` (reference:
+Replacement for `mixed_radix_dit_rec` (reference:
 src/highSpeedFFT.c:318-1629).  The reference's shape — recursive, strided,
-scalar butterflies with in-place combining — is exactly wrong for TPU (strided
-gathers, no vector lanes, no matmuls).  Here the same Cooley-Tukey mixed-radix
-decomposition is expressed as a *trace-time* recursion that emits, per stage:
+scalar butterflies with in-place combining — is exactly wrong for an
+accelerator (strided gathers, no vector lanes, no matmuls).  Here the same
+Cooley-Tukey mixed-radix decomposition is expressed as a *trace-time* recursion that emits, per stage:
 
     reshape → (batched length-N2 sub-FFTs) → twiddle ⊙ → dense f×f DFT matmul
 
-so every stage's butterfly work is one big MXU matmul contracted over the
+so every stage's butterfly work is one big matmul contracted over the
 stage size with the full batch (and all sibling sub-transforms) folded into
-the matmul's M dimension, and every twiddle multiply is a VPU elementwise op
+the matmul's M dimension, and every twiddle multiply is an elementwise op
 that XLA fuses with its neighbours.  There is no bit-reversal and no strided
 recursion at runtime — like the reference's implicit digit-reversal, ordering
 falls out of the reshape/transpose algebra, but as dense layout changes
@@ -18,8 +18,8 @@ instead of scalar strided loads.
 
 Leaf codelets (reference src/highSpeedFFT.c:333-713) and the O(r²) general-
 radix combine (1475-1628) both collapse into the same dense DFT matmul here:
-on an MXU a hand-unrolled radix-7 butterfly and a 7×7 matrix multiply are the
-same thing, and the matmul version is correct for *every* radix (the
+on a matrix unit a hand-unrolled radix-7 butterfly and a 7×7 matrix multiply
+are the same thing, and the matmul version is correct for *every* radix (the
 reference's leaf-2 drops input[0] — verified bug, src/highSpeedFFT.c:354-364).
 
 All functions are jittable; the plan rides along as a pytree argument.
@@ -40,27 +40,22 @@ from ..utils.numerics import cmul
 Array = jax.Array
 
 
-# Complex stage matmul forms, chosen per stage size f (measured on v5e,
-# interleaved A/B, fp32 HIGHEST):
+# Complex stage matmul forms, chosen per stage size f.  The crossover is an
+# inherited default, not measured on the H100 (ROADMAP S5):
 #
 # * STACKED (f < KARATSUBA_MIN_STAGE): one real matmul with the re/im planes
 #   concatenated on the contraction axis against the (2f, 2f) block matrix
 #   [[Wr, Wi], [−Wi, Wr]].  Same flops as the naive 4-matmul form but double
-#   the contraction depth K — at small K the MXU is utilization-starved
-#   (K=32 runs ~4.5 of ~33 fp32-effective TFLOP/s), so doubling K is ~free
-#   speed: 1.77x at N=1024 (32,32), 1.25x at N=4096 (64,64).
+#   the contraction depth K, which feeds a matrix unit better at small K.
 # * KARATSUBA (f >= KARATSUBA_MIN_STAGE): three real matmuls
 #   M1 = xr·Wr, M2 = xi·Wi, M3 = (xr+xi)·(Wr+Wi); zr = M1−M2,
-#   zi = M3−M1−M2.  At large K the MXU is already near its flop roofline, so
-#   the 25% flop cut beats better utilization: 1.35x over stacked at
-#   N=65536 (256,256), putting that size 1.14x ahead of jnp.fft.fft.
+#   zi = M3−M1−M2: 25% fewer flops than the stacked form.
 KARATSUBA_MIN_STAGE = 128
 
-# Stage sizes executed as VPU butterflies when the plan's butterfly lever is
-# on (SpectralConfig.butterfly="auto", the default — measured 1.17x at the
-# N=65536 (128,128,4) leaf and 1.39x for the radix-16 form at the N=2048
-# (128,16) tail; see _butterfly_stage).  plan.butterfly_max=8 (config
-# value "8") caps out the radix-16 form for A/Bs.
+# Stage sizes executed as elementwise butterflies when the plan's butterfly
+# lever is on (SpectralConfig.butterfly="auto", the default; see
+# _butterfly_stage).  plan.butterfly_max=8 (config value "8") caps out the
+# radix-16 form for A/Bs.
 BUTTERFLY_RADICES = (2, 4, 8, 16)
 
 
@@ -78,9 +73,9 @@ def _bf16_chunks3(v: Array) -> Tuple[Array, Array, Array]:
     """Three-term bf16 decomposition of an fp32 array: v ≈ c1 + c2 + c3.
 
     Chunks are cut by BITMASK, not dtype casts: the natural
-    ``v - v.astype(bf16).astype(f32)`` residual is silently zeroed by XLA's
-    excess-precision simplifier on TPU (the f32→bf16→f32 round trip is
-    elided; measured — the split6 error collapsed to bf16-class 2.3e-3).
+    ``v - v.astype(bf16).astype(f32)`` residual can be silently zeroed by
+    XLA's excess-precision simplifier (the f32→bf16→f32 round trip is
+    elided and the split6 error collapses to bf16 class).
     Masking the low 16 mantissa bits keeps each chunk exactly
     bf16-representable while the subtraction stays a real f32 op."""
     mask = np.int32(~np.int32(0xFFFF))
@@ -99,16 +94,13 @@ def _bf16_chunks3(v: Array) -> Tuple[Array, Array, Array]:
 
 
 def _einsum_split6(subscripts: str, axis: int, x: Array, w: Array) -> Array:
-    """fp32-accurate matmul as ONE deep bf16 MXU pass ("split6" form).
+    """fp32-accurate matmul as ONE deep bf16 pass ("split6" form).
 
-    XLA's HIGHEST precision computes the same six chunk products
-    (x1w1; x1w2+x2w1; x1w3+x2w2+x3w1) as six sequential bf16 passes, each at
-    the original contraction depth K — at the engine's small stage sizes
-    (K = 2f = 64 for the N=1024 plan) every pass underfills the 128-deep MXU.
-    Stacking the six products onto the contraction axis instead yields a
-    single matmul of depth 6K that computes identical arithmetic at full
-    utilization.  bf16·bf16 products are exact in the fp32 accumulator
-    (8-bit mantissas), so accuracy is HIGHEST-class (~1e-7 measured)."""
+    The six bf16 chunk products of a three-way split
+    (x1w1; x1w2+x2w1; x1w3+x2w2+x3w1) are stacked onto the contraction axis,
+    giving a single bf16 matmul of depth 6K with fp32 accumulation.
+    bf16·bf16 products are exact in the fp32 accumulator (8-bit mantissas),
+    so accuracy is HIGHEST-class (~1e-7)."""
     x1, x2, x3 = _bf16_chunks3(x)
     w1, w2, w3 = _bf16_chunks3(w)
     xs = jnp.concatenate([x1, x1, x2, x1, x2, x3], axis=axis)
@@ -126,7 +118,7 @@ def _dft_apply(
     precision: str,
 ) -> Tuple[Array, Array]:
     """Dense complex DFT stage over ``axis`` via ``subscripts`` einsum,
-    dispatching on the measured stacked/Karatsuba crossover."""
+    dispatching on the stacked/Karatsuba crossover."""
     f = wr.shape[0]
     if precision == "split6":
         dot = lambda a, w: _einsum_split6(subscripts, axis, a, jnp.asarray(w))
@@ -254,17 +246,16 @@ def _bfly16(pr, pi, sign: int):
 def _butterfly_stage(
     f: int, sign: int, axis: int, xr: Array, xi: Array
 ) -> Tuple[Array, Array]:
-    """Radix-2/4/8/16 DFT over ``axis`` (-1 or -2) as elementwise VPU passes.
+    """Radix-2/4/8/16 DFT over ``axis`` (-1 or -2) as elementwise passes.
 
     For f <= 4 every DFT-matrix entry is ±1 or ±i, so the stage needs no
     real multiplies at all: multiplication by ±i is a re/im plane swap with
     a sign flip; f = 8 adds only scalar √½ multiplies for the two odd
-    twiddles.  The dense-matmul form of these stages runs a depth-2f<=16
-    contraction on the 128-deep MXU (~6-12 % utilization) and keeps an
-    f-wide minormost dimension through the neighbouring big stages' matmuls;
-    the butterfly form is a handful of full-width elementwise passes
-    instead.  Enabled per-plan (``MixedRadixPlan.butterfly``) so the choice
-    stays a measured dispatch like every other engine lever."""
+    twiddles.  The dense-matmul form of these stages runs a depth-2f
+    contraction and keeps an f-wide minormost dimension through the
+    neighbouring big stages' matmuls; the butterfly form is a handful of
+    full-width elementwise passes instead.  Enabled per-plan
+    (``MixedRadixPlan.butterfly``) like every other engine lever."""
     if axis == -1:
         part = lambda a, j: a[..., j]
     else:
@@ -411,17 +402,9 @@ def exec_complex(plan, xr: Array, xi: Array) -> Tuple[Array, Array]:
 def exec_len(
     config, n: int, sign: int, xr: Array, xi: Array
 ) -> Tuple[Array, Array]:
-    """Length-``n`` unnormalized transform over the last axis via the
-    configured engine path: the opt-in experimental Pallas kernel when
-    ``config.use_pallas`` enables it (retired default — see
-    ops/pallas_fft.py status note), else the plan-based stage pipeline.
-    Single dispatch point shared by the fft/rfft API layers."""
-    if config.use_pallas is not False:
-        from .pallas_fft import maybe_exec_pallas
-
-        out = maybe_exec_pallas(config, n, sign, xr, xi)
-        if out is not None:
-            return out
+    """Length-``n`` unnormalized transform over the last axis through the
+    plan-based stage pipeline.  Single dispatch point shared by the
+    fft/rfft API layers."""
     from ..plan import get_plan
 
     return exec_complex(get_plan(n, sign, "complex", config), xr, xi)

@@ -3,7 +3,7 @@
 Line-spectra estimators that resolve sinusoids far below the FFT's
 resolution limit (the MATLAB pmusic/rootmusic/pburg family).  Split of
 labor: the data-dependent heavy lifting — forming the forward-backward
-autocorrelation matrix from signal frames — is a batched MXU contraction;
+autocorrelation matrix from signal frames — is a batched contraction;
 the tiny (m×m, m ≲ 64) eigendecompositions and polynomial rootings run
 host-side fp64 (design-time-class numerics, same convention as filter
 design).  The MUSIC pseudospectrum grid evaluation is again one dense

@@ -8,7 +8,7 @@ The (pseudo-)Wigner-Ville distribution of the analytic signal z:
 chirp is a line along its instantaneous frequency), at the price of
 cross-terms between components, tamed by the ``window`` h (pseudo-WVD).
 
-TPU shape: the lag products gather through STATIC host index matrices
+Device shape: the lag products gather through STATIC host index matrices
 (z[n+tau], z[n−tau] are two fancy-indexed views — XLA lowers them to
 slices), and the lag axis transforms with one batched engine FFT; no
 per-time-step loop.  tftb / Matlab ``wvd`` discrete conventions (odd
@@ -509,10 +509,10 @@ def reassigned_spectrogram(
     collapse to their true frame, chirps to their instantaneous-frequency
     ridge, in BOTH axes (synchrosqueezing sharpens frequency only).
 
-    TPU shape: the 2-D relocation is a small static loop over frame
+    Device shape: the 2-D relocation is a small static loop over frame
     offsets o ∈ [−⌈c/hop⌉, ⌈c/hop⌉] (time shifts are bounded by the
     window half-length c), each a masked one-hot frequency contraction
-    (MXU matmul) placed by a static pad — no scatter.  Cells with
+    (matmul) placed by a static pad — no scatter.  Cells with
     |S| <= gamma·max|S| or targets outside the plane are dropped, as in
     reassignment literature (librosa.reassigned_spectrogram semantics with
     energy accumulation instead of coordinate output)."""
@@ -590,7 +590,7 @@ def stockwell(
 
         S[k, t] = ifft_j( X[(j+k) mod T] · e^{−2π²γ²j²/k²} )[t] ,
 
-    row k=0 carrying the mean.  TPU shape: one engine FFT, a STATIC
+    row k=0 carrying the mean.  Device shape: one engine FFT, a STATIC
     host-index roll gather to (K, T), a host Gaussian voice-window
     constant, and one batched engine ifft over rows — no loops.  Row sums
     recover X[k] exactly (the window is 1 at j=0), so :func:`istockwell`
@@ -674,7 +674,7 @@ def ambiguity(
     doppler bins ν = fftfreq(T)·T cycles (fftshifted to center zero).
 
     The dual of :func:`wigner_ville` (they are a 2-D Fourier pair): matched
-    filters and delay-doppler radar maps read straight off it.  Same TPU
+    filters and delay-doppler radar maps read straight off it.  Same device
     shape as the WVD — static lag-index gathers, one batched engine FFT
     along TIME per lag row."""
     x = jnp.asarray(x)

@@ -8,7 +8,7 @@ at polar spectral points for :func:`radon`, and a type-1 spreading of
 ramp-filtered slices back onto the Cartesian grid for :func:`iradon` —
 plus one batched engine (i)fft per direction.  No rotation resampling,
 no per-angle loop; every angle is one more row of non-uniform points in
-a single NUFFT call (MXU block one-hot spreading underneath).
+a single NUFFT call (block one-hot spreading underneath).
 
 Conventions: the image is (…, N, N) with pixel (row, col) = (y, x) and
 the center at index N//2; ``theta`` are angles in RADIANS; the

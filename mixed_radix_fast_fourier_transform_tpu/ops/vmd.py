@@ -6,7 +6,7 @@ modes by ADMM on min Σ_k ‖∂_t[(δ + j/πt) * u_k]e^{−jω_k t}‖² subjec
 Wiener filter per mode plus a spectral centroid — so where EMD's sifting is
 inherently host-side and data-dependent (ops/emd.py), VMD jits end-to-end:
 one engine FFT in, a `lax.fori_loop` of vectorized updates, one inverse
-FFT out.  The TPU-native nonstationary decomposition.
+FFT out.  The batched nonstationary decomposition.
 
 Mirror extension (standard) removes boundary splits; iteration count is
 static for jit.  Capability extension; oracle-tested on tone/chirp

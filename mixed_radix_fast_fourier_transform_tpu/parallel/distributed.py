@@ -1,7 +1,7 @@
 """Distributed transforms: four-step decomposition + batch sharding.
 
 The reference is single-core C with no parallel subsystem (SURVEY.md §2.3), so
-this is a new TPU-first component.  Two orthogonal mechanisms:
+this is a new component.  Two orthogonal mechanisms:
 
 * **Batch sharding** (:func:`fft_batch_sharded`): independent transforms laid
   out over a mesh axis with `NamedSharding`; XLA partitions the whole matmul
@@ -19,11 +19,11 @@ this is a new TPU-first component.  Two orthogonal mechanisms:
       4. X[k2·N1 + k1] = A[k1, k2]             (global transpose)
 
   Sharded over a mesh axis P, each column/row FFT is local and each layout
-  change is one `jax.lax.all_to_all` riding ICI: reshard n1→n2 before step 1,
-  n2→n1 before step 3, and one final resharding transpose for natural-order
+  change is one `jax.lax.all_to_all` over the interconnect: reshard n1→n2
+  before step 1, n2→n1 before step 3, and one final resharding transpose for natural-order
   output — three all-to-alls total, each moving N/P complex elements per chip.
 
-The per-chip FFTs reuse the single-chip mixed-radix MXU engine
+The per-chip FFTs reuse the single-chip mixed-radix matmul engine
 (:mod:`..ops.stockham`); the split twiddle is precomputed on host in fp64 with
 exact integer phase reduction (the same accuracy discipline as the plan
 twiddles — reference's dynamic formula, src/highSpeedFFT.c:2275-2288).
@@ -125,7 +125,7 @@ def fft_four_step(
 
     ``overlap_chunks > 1`` splits the leading batch axis into that many
     independent chunk pipelines inside one shard_map, so XLA's latency-hiding
-    scheduler can overlap chunk i's ICI all-to-all with chunk j's local FFT
+    scheduler can overlap chunk i's all-to-all with chunk j's local FFT
     compute (SURVEY §7 hard part (d)).  Requires a leading batch axis whose
     local size divides by the chunk count; numerics are identical.
     """
@@ -477,7 +477,7 @@ def rfft_four_step(
     Packed scheme (ops/rfft.py's algebra) on top of the sharded complex
     four-step: the even/odd interleave is shard-local (a contiguous shard of
     the signal covers a contiguous range of the packed index), the half-length
-    transform runs the four-step with its ICI all-to-alls, and the split
+    transform runs the four-step with its all-to-alls, and the split
     epilogue X = P⊙Z + Q⊙conj(reflect(Z)) runs at jit level on the sharded
     spectrum — the partitioner inserts the mirror's collective-permute.
     """
@@ -678,7 +678,7 @@ def fftn_pencil(
     All transform axes other than ``shard_dim`` are local batched transforms;
     ``shard_dim`` (if it is a transform axis) is handled by one all-to-all
     transpose against the last axis, a local transform, and the transpose
-    back.  For 3-D data on a v5e slice this is the standard slab/pencil
+    back.  For 3-D data over a mesh of devices this is the standard slab/pencil
     decomposition with 2 collectives total.
     """
     x = jnp.asarray(x)
@@ -1038,7 +1038,7 @@ def poisson_solve_pencil2(
 # Distributed NUFFT: points sharded over the mesh.  The natural parallel
 # decomposition for non-uniform data is by POINTS (each chip grids / reads
 # its own subset); the uniform-grid work is a single small engine FFT.
-# Type 1: local Gaussian spread -> one psum of the oversampled grid over ICI
+# Type 1: local Gaussian spread -> one psum of the oversampled grid
 # -> replicated FFT + deconvolution.  Type 2: replicated deconvolve + FFT ->
 # each chip interpolates only its local points (zero collectives after the
 # broadcast).  Point counts that do not divide the mesh are zero-padded
@@ -1276,7 +1276,7 @@ def nufft2_2d_sharded(
 # Distributed spherical harmonic transform: latitude bands sharded over the
 # mesh.  The longitude FFT is per-latitude (local to each band); analysis
 # contracts the Legendre tables over latitude, so each chip reduces its own
-# band and one psum over ICI completes the quadrature.  Synthesis needs no
+# band and one psum completes the quadrature.  Synthesis needs no
 # collectives at all: each chip evaluates its latitude band from the
 # replicated coefficients.
 # ---------------------------------------------------------------------------
@@ -1324,7 +1324,7 @@ def sht_sharded(
 
     def body(fl, wl, *tabs):
         # each chip holds its latitude band of every triangular chunk; the
-        # per-band quadrature contraction completes with one psum over ICI.
+        # per-band quadrature contraction completes with one psum.
         # Real fields ride the Hermitian fast path (rfft + conj fold, half
         # the Legendre work — the fold is linear, so folding before the
         # psum is exact).

@@ -2,7 +2,7 @@
 
 The reference has **no** distributed subsystem at all (SURVEY.md §2.3 — no
 threads, no MPI/NCCL, single-core scalar C).  This module is therefore a
-first-class new component, not a port: TPU-native scale-out is expressed as a
+first-class new component, not a port: scale-out is expressed as a
 `jax.sharding.Mesh` whose axes name the two forms of spectral parallelism:
 
 * ``data``  — batch sharding: independent transforms on different chips.
@@ -10,8 +10,9 @@ first-class new component, not a port: TPU-native scale-out is expressed as a
   the four-step transpose decomposition (see :mod:`.distributed`), the
   spectral analogue of sequence parallelism.
 
-Collectives ride ICI when the mesh axes are laid out over a slice; multi-host
-meshes additionally cross DCN, which `jax.distributed.initialize` sets up.
+Collectives ride the devices' interconnect (NVLink between the GPUs of one
+host); multi-host meshes additionally cross the network, which
+`jax.distributed.initialize` sets up.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Plan construction (L2-cold-path of the reference, trace-time here).
 
-TPU-native replacement for `fft_init` / `struct fft_set` / `free_fft`
+Replacement for `fft_init` / `struct fft_set` / `free_fft`
 (reference: src/highSpeedFFT.c:206-286, 2315-2318; src/highspeedFFT.h:36-43).
 
 Key design differences from the reference, all deliberate:
@@ -47,7 +47,7 @@ class MixedRadixPlan:
     """Stage schedule for the mixed-radix engine.
 
     ``factors`` are dense DFT stage sizes (descending, product = n); stage i
-    contributes one (f_i × f_i) MXU matmul.  ``tw_*[i]`` are the Cooley-Tukey
+    contributes one (f_i × f_i) matmul.  ``tw_*[i]`` are the Cooley-Tukey
     split twiddles between stage i and the remainder, shape
     (f_i, prod(factors[i+1:])).
     """
@@ -56,21 +56,20 @@ class MixedRadixPlan:
     sign: int = dataclasses.field(metadata=dict(static=True))
     factors: Tuple[int, ...] = dataclasses.field(metadata=dict(static=True))
     # matmul precision for the stage DFTs, from the building config ("highest"
-    # keeps fp32 accuracy on the MXU; see SpectralConfig.precision).  Either a
+    # keeps fp32 accuracy in the matmuls; see SpectralConfig.precision).  Either a
     # single string applied to every stage, or a tuple of per-stage strings
     # (stage i uses precision[min(i, len-1)]) for mixed-precision schemes.
     precision: "str | Tuple[str, ...]" = dataclasses.field(
         default="highest", metadata=dict(static=True)
     )
-    # Execute stages of size 2/4 as VPU butterflies (adds + re/im swaps)
-    # instead of dense MXU matmuls — at f<=4 every DFT entry is ±1/±i, and
+    # Execute stages of size 2/4 as elementwise butterflies (adds + re/im swaps)
+    # instead of dense matmuls — at f<=4 every DFT entry is ±1/±i, and
     # the matmul form drags a 4-wide minormost dim through the neighbouring
-    # big stages (measured A/B lever; see stockham._butterfly_stage).
+    # big stages (A/B lever; see stockham._butterfly_stage).
     butterfly: bool = dataclasses.field(default=False, metadata=dict(static=True))
-    # Largest stage size the butterfly dispatch may take.  16 (the default
-    # via SpectralConfig.butterfly="auto") measured 1.39x at the N=2048
-    # (128,16) tail and enables the 1.59x (64,16) plan at N=1024;
-    # SpectralConfig.butterfly="8" caps at the pre-measurement set.
+    # Largest stage size the butterfly dispatch may take: 16 by default
+    # (SpectralConfig.butterfly="auto"), which the (64,16) plan at N=1024
+    # relies on; SpectralConfig.butterfly="8" caps at 8.
     butterfly_max: int = dataclasses.field(default=8, metadata=dict(static=True))
     dft_re: Tuple[Array, ...] = ()
     dft_im: Tuple[Array, ...] = ()
@@ -187,7 +186,7 @@ def _as_jnp(pair, dtype) -> Tuple[np.ndarray, np.ndarray]:
 def build_mixed_radix_plan(
     n: int, sign: int, config: SpectralConfig = DEFAULT_CONFIG
 ) -> MixedRadixPlan:
-    """Stage-matmul plan for a smooth length ``n``: measured stage split,
+    """Stage-matmul plan for a smooth length ``n``: planned stage split,
     per-stage DFT matrices + split twiddles as fp64-generated host constants
     (reference: fft_init's lt=0 branch, src/highSpeedFFT.c:206-233)."""
     if sign not in (-1, 1):
@@ -369,7 +368,7 @@ def build_real_plan(
 
 
 # --------------------------------------------------------------------------
-# Plan cache — the TPU analogue of the reference's long-lived fft_object
+# Plan cache — the analogue of the reference's long-lived fft_object
 # (plus XLA's own compilation cache on top).  Keyed on everything that changes
 # plan structure or constants.
 # --------------------------------------------------------------------------

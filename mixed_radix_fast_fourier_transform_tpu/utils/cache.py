@@ -1,12 +1,14 @@
 """Compilation & plan persistence (the checkpoint/resume analogue).
 
 The reference's only persistent artifact is its in-memory plan (SURVEY.md §5
-"checkpoint/resume: none").  On TPU the expensive artifact is the *compiled
-executable* (first compile of a big transform is tens of seconds), so the
-TPU-native equivalent is:
+"checkpoint/resume: none").  On an accelerator the expensive artifact is
+the *compiled executable* (first compile of a big transform takes seconds
+to minutes), so the equivalent here is:
 
 * :func:`enable_persistent_cache` — turn on JAX's on-disk compilation cache
-  so every plan shape compiles once per machine, not once per process;
+  so every plan shape compiles once per cache directory, not once per
+  process.  The directory is ``$JAX_COMPILATION_CACHE_DIR`` when that is
+  set, else the fixed ``<repo>/.jax_cache`` (:func:`compile_cache_dir`);
 * :func:`save_plans` / :func:`load_plans` — persist the plan *manifest*
   (which (kind, n, sign) plans a workload used) so a fresh process can
   rebuild exactly that working set up front; plan constants are
@@ -25,12 +27,23 @@ import numpy as np
 from ..plan import _CACHE, _CACHE_LOCK, get_plan
 from .config import DEFAULT_CONFIG, SpectralConfig
 
-DEFAULT_CACHE_DIR = os.path.expanduser("~/.cache/mixed_radix_fft_tpu/xla")
+# Fixed path inside the checkout (listed in .gitignore): a cache directory
+# that moves between runs never hits.
+REPO_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
+
+
+def compile_cache_dir() -> str:
+    """``$JAX_COMPILATION_CACHE_DIR`` when set, else ``<repo>/.jax_cache``."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or REPO_CACHE_DIR
 
 
 def enable_persistent_cache(path: Optional[str] = None) -> str:
-    """Enable JAX's persistent compilation cache (idempotent)."""
-    path = path or DEFAULT_CACHE_DIR
+    """Enable JAX's persistent compilation cache (idempotent) in ``path``,
+    default :func:`compile_cache_dir`."""
+    path = path or compile_cache_dir()
     os.makedirs(path, exist_ok=True)
     jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)

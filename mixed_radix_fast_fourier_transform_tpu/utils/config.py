@@ -15,80 +15,52 @@ import jax.numpy as jnp
 
 @dataclasses.dataclass(frozen=True)
 class SpectralConfig:
+    # Every default below is inherited from the library's first target (a
+    # different accelerator) and has NOT been measured on the H100; PERF.md
+    # holds what has been.
+    #
     # Largest dense DFT stage the mixed-radix engine will emit.  Each stage is
-    # one MXU matmul of this size; primes above it route the length to
+    # one matmul of this size; primes above it route the length to
     # Bluestein.  256 lets lengths up to 65536 run as two balanced stages
-    # ((256,256) for 65536, (32,32) for 1024 — measured fastest on v5e) and
-    # keeps stage matrices MXU-shaped (contraction dim <= 256).
+    # ((256,256) for 65536) with contraction dims <= 256.
     max_stage: int = 256
     # Lengths <= this are done as one dense DFT matmul (single-stage plan).
     direct_dft_max: int = 64
-    # Stage grouping: "balanced" (fewest stages, then LPT-equal sizes —
-    # measured fastest) or "greedy" (descending-prime packing, matches the
-    # native planner; kept for reproducibility).
+    # Stage grouping: "balanced" (fewest stages, then LPT-equal sizes) or
+    # "greedy" (descending-prime packing, matches the native planner).
     stage_strategy: str = "balanced"
     # Working dtype of the (re, im) planes on device.
     dtype: jnp.dtype = jnp.float32
-    # Matmul precision for the stage DFTs.  Measured ladder at N=1024 on v5e:
-    # HIGHEST (6-pass bf16, fp32-exact) err 1.4e-7; HIGH (3-pass) err 1.7e-5 —
-    # just OVER the 1e-5 budget but ~1.2-2x faster where acceptable; DEFAULT
-    # (1-pass bf16) err 3.2e-3.  HIGHEST is required for the default budget;
-    # pass SpectralConfig(precision="high") per-workload to trade accuracy
-    # for speed.  A tuple of strings gives per-stage precisions (stage i of
-    # the plan uses precision[min(i, len-1)]) for mixed schemes such as
-    # ("highest", "high") — see tools/tune.py prec for the measurement
-    # harness.
+    # Matmul precision for the stage DFTs.  HIGHEST (fp32 products; on a GPU
+    # fp32 outside the tensor cores) is what the 1e-5 error budget
+    # (NUMERICS.md) is stated for; cheaper precisions ("high", "default")
+    # trade accuracy for speed per workload.  A tuple of strings gives
+    # per-stage precisions (stage i of the plan uses
+    # precision[min(i, len-1)]) for mixed schemes such as ("highest",
+    # "high") — see tools/tune.py prec for the measurement harness.
     precision: "jax.lax.Precision | str | tuple" = jax.lax.Precision.HIGHEST
     # Padded-length selector for Bluestein / convolution: "pow23" picks the
-    # smallest 2^a or 3·2^a — measured 1.35x faster than "pow2" for Bluestein
-    # N=10007 on v5e (interleaved A/B, m=24576 (192,128) vs 32768 (256,128)),
-    # same ~1e-7 accuracy.  "pow2" mirrors the reference (src/convolve.c:20-25);
-    # "fast" (2·3·5·7-smooth) measured slower than both (odd stage shapes).
+    # smallest 2^a or 3·2^a (e.g. m=24576 instead of 32768 at N=10007, same
+    # ~1e-7 accuracy); "pow2" mirrors the reference (src/convolve.c:20-25);
+    # "fast" is 2·3·5·7-smooth.
     pad_mode: str = "pow23"
     # Rader's algorithm for prime lengths whose n−1 is max_stage-smooth:
     # "auto" converts the prime DFT into ONE length-(n−1) cyclic
     # convolution — two smooth inner FFTs of n−1 points instead of
-    # Bluestein's two FFTs of m ≈ 2.4n chirp-padded points.  The flop model
-    # says ~2x less inner work, but ON CHIP Rader MEASURES SLOWER:
-    # 0.776x (BENCH_r04) and 0.755x (tools/tune.py rader 1009 64,
-    # 2026-08-19) vs Bluestein at n=1009 b=64 — the primitive-root
-    # permutations are gathers (VPU/HBM-bound) and the (36,28)-class inner
-    # stages utilize the MXU worse than Bluestein's measured-optimal
-    # (128,16) m=2048 plan; a better 1008 split can't recover 30%+ when
-    # halving the inner size already didn't.  Default is therefore "off"
-    # (measured-decision discipline); "auto" remains the opt-in lever and
-    # the plan type keeps its oracle tests.  Primes whose n−1 is NOT
-    # smooth (e.g. 10007 = 2·5003 + 1) take Bluestein either way.
+    # Bluestein's two FFTs of m ≈ 2.4n chirp-padded points, at the cost of
+    # two permutation gathers.  Default "off" (Bluestein); "auto" is the
+    # opt-in lever and the plan type keeps its oracle tests.  Primes whose
+    # n−1 is NOT smooth (e.g. 10007 = 2·5003 + 1) take Bluestein either way.
     rader: str = "off"
-    # Small trailing DFT stages (f ∈ {2, 4, 8}) as VPU butterflies instead
-    # of dense MXU matmuls: at f <= 4 every DFT entry is ±1/±i (no real
-    # multiplies at all; ×i is a plane swap), f = 8 adds two scalar-√½
-    # twiddles.  Measured on v5e 2026-08-19 (tools/tune.py butterfly,
-    # interleaved): N=65536 (128,128,4) leaf-4 butterfly 1.17x over the
-    # depth-8 stacked matmul (116 → 95 µs, rel err 2.5e-7) — that matmul
-    # ran the 128-deep MXU at ~6 % utilization.  Moving the small stage to
-    # the FRONT factor measured ~2x SLOWER either form (the (b,4,N/4)
-    # transpose costs a full pass), so descending stage order stands and
-    # butterflies apply where the small factors already sit.  Radix 16
-    # (two radix-8 halves + a cos/sin(π/8) constant-twiddle combine, ~11
-    # VPU ops/point vs the depth-32 stacked matmul) measured 2026-08-19
-    # on v5e, interleaved: N=2048 (128,16) tail-16 butterfly **1.39x**
-    # (17→12 µs b=128, err 1.9e-7), and it flips the N=1024 plan choice —
-    # (64,16)+bfly16 is 1.59x over the old (32,32) LPT plan (14→9 µs
-    # b=256; (128,8)+bfly8 only 1.23x).  Plan-SHAPE changes beyond that
-    # measured worse: (64,64,16) 0.64x at 65536, (128,16,16) 0.89x at
-    # 32768, (64,16,16) 0.32x at 16384, (256,16) parity at 4096 — an
-    # extra pass costs more than a free tail saves; splits stand except
-    # n=1024.  "auto" (default) = butterfly stages of size 2/4/8/16;
-    # "8" = cap at 8 (the pre-measurement set, kept as the A/B lever);
-    # "16" = synonym of auto; "off" = always matmul.
+    # Small trailing DFT stages as elementwise butterflies instead of dense
+    # matmuls: at f <= 4 every DFT entry is ±1/±i (no real multiplies at
+    # all; ×i is a plane swap), f = 8 adds two scalar-√½ twiddles, f = 16
+    # is two radix-8 halves + a cos/sin(π/8) constant-twiddle combine (~11
+    # ops/point vs a depth-32 stacked matmul).  Stages keep descending
+    # order, so butterflies apply where the small factors already sit.
+    # "auto" (default) = butterfly stages of size 2/4/8/16; "8" = cap at
+    # 8; "16" = synonym of auto; "off" = always matmul.
     butterfly: str = "auto"
-    # Fused Pallas kernel path for smooth lengths (ops/pallas_fft.py):
-    # False (default) = always XLA; None = auto (kernel on TPU backends);
-    # True = force (interpreter off-TPU).  Since the stacked/Karatsuba stage
-    # matmuls landed (ops/stockham.py) the XLA path is FASTER than the kernel
-    # at every measured size — keep False unless experimenting.
-    use_pallas: "bool | None" = False
 
 
     @property

@@ -1,6 +1,6 @@
 """Number theory & planning layer (L0 of the reference).
 
-TPU-native reimplementation of the reference's factorability check and prime
+Reimplementation of the reference's factorability check and prime
 factorization planner (reference: `src/highSpeedFFT.c:11-55` `dividebyN` lookup,
 `1954-2025` `divideby`/`dividebyN`, `2038-2163` `factors`).  Unlike the reference,
 whose prime set omits 19 from the lookup (`src/highSpeedFFT.c:12-55`) while
@@ -160,16 +160,14 @@ def plan_stages(
 ) -> Tuple[int, ...]:
     """Group the prime factorization of ``n`` into DFT stage sizes <= max_stage.
 
-    The TPU engine executes one dense (stage x stage) DFT matmul per stage on
-    the MXU, so stage choice is a throughput knob — the moral equivalent of
-    the reference preferring radices 8 and 4 over 2
-    (src/highSpeedFFT.c:2046-2137), generalized and measured:
+    The engine executes one dense (stage x stage) DFT matmul per stage, so
+    stage choice is a throughput knob — the moral equivalent of the
+    reference preferring radices 8 and 4 over 2
+    (src/highSpeedFFT.c:2046-2137), generalized:
 
     * ``balanced`` (default): **fewest stages, then most equal sizes** (LPT
       packing).  Each stage is a full pass over the data, so stage count
-      dominates; among equal counts, balanced sizes won on hardware
-      (N=1024: (32,32) at 778 GFLOP/s vs (64,16) at 670 and (128,8) at 671
-      on TPU v5e).
+      dominates; among equal counts, sizes are balanced.
     * ``greedy``: pack descending primes toward max_stage (the native C++
       planner's algorithm, kept for parity tests and plan reproducibility).
 
@@ -189,20 +187,12 @@ def plan_stages(
         return _plan_stages_greedy(n, max_stage)
     if strategy != "balanced":
         raise ValueError(f"unknown stage strategy {strategy!r}")
-    # Measured exception to LPT balancing (v5e, 2026-08-16, interleaved A/B —
-    # see CLAUDE.md): for power-of-two lengths >= 2048 the engine's Karatsuba
-    # form makes stages of exactly 128 the throughput sweet spot, so prefer
-    # 128s plus one stacked remainder over equal-size stages:
-    # 2048 (128,16) 1.75x over (64,32); 4096 (128,32) 1.10x over (64,64);
-    # 65536 (128,128,4) 1.15x over (256,256).  A remainder of 2 is better
-    # merged into one 256 stage ((256,128) beats (128,128,2) by 1.27x at
-    # 32768).  N=1024 stays LPT: (32,32) beat (128,8) by 1.10x.
-    # Measured exception (v5e, 2026-08-19, interleaved — see CLAUDE.md
-    # round-5): with the radix-16 VPU butterfly tail the N=1024 plan flips
-    # from LPT (32,32) to (64,16) — the stacked-64 stage runs a full
-    # 128-deep MXU contraction and the 16-tail is ~11 VPU ops/point:
-    # 1.59x at b=256 (14→9 µs; (128,8)+bfly8 only 1.23x).  Gated at
-    # max_stage >= 128 so constrained configs keep their measured LPT.
+    # The special cases below (N=1024, power-of-two 128-stages, the
+    # non-pow2 window rule) are inherited rules tuned on the library's first
+    # accelerator; none has been measured on the H100 (ROADMAP S5/D7).
+    # Power-of-two lengths >= 2048 prefer 128-stages plus one remainder
+    # (a remainder of 2 merges into one 256 stage); N=1024 runs (64,16) with
+    # the radix-16 butterfly tail, gated at max_stage >= 128.
     if n == 1024 and max_stage >= 128:
         return (64, 16)
     if n >= 2048 and n & (n - 1) == 0 and max_stage >= 256:
@@ -222,21 +212,9 @@ def plan_stages(
         raise ValueError(
             f"prime factor {primes[0]} of {n} exceeds max_stage={max_stage}"
         )
-    # Measured window rule for two-stage non-pow2 lengths (v5e, 2026-08-16,
-    # interleaved A/B — see CLAUDE.md): the largest divisor <= 128 as the
-    # leading stage beats LPT balancing, mirroring the pow2 128-stage rule:
-    # 3072 (128,24) 1.19x over (64,48); 3600 (120,30) 1.65x over (60,60);
-    # 5040 (126,40) 1.70x and (112,45) 1.50x over (84,60); 6144 (128,48)
-    # 1.40x over (96,64); 10000 (125,80) parity with (100,100).  Above 128
-    # the win vanishes ((140,36) 1.08x, (144,25) 0.91x, (150,24) 1.06x), so
-    # the window is (96..128]; descending order matters ((30,120) only
-    # 1.39x).  Below n=3072 LPT stands: 2520 (126,20) measured 0.83x vs
-    # (56,45), 1800 (120,15) parity, 1260 (126,10) 0.72-0.91x.
-    # Gated on co-factor <= 128: the measurements only cover co-factors up to
-    # 80 (parity by 80 at n=10000), and plans whose *trailing* stage exceeds
-    # 128 (e.g. (200,128) at 25600) would land in the unmeasured
-    # leading-stage->128 regime the same tables show losing — those lengths
-    # fall through to LPT ((160,160) at 25600) instead.
+    # Window rule for two-stage non-pow2 lengths >= 3072: the largest
+    # divisor in (96..128] leads the plan when its co-factor is <= 128
+    # (e.g. 5040 -> (126,40)); other lengths fall through to LPT.
     if n >= 3072 and max_stage >= 256:
         for a in range(128, 96, -1):
             if n % a == 0 and n // a <= 128:

@@ -1,6 +1,6 @@
 """Complex-as-planes helpers.
 
-TPU VPU/MXU units operate on real arrays; complex64 on TPU is decomposed by
+Matrix and vector units operate on real arrays; complex64 is decomposed by
 XLA anyway, and keeping explicit (re, im) fp32 planes (struct-of-arrays) gives
 the engine direct control over fusion and matmul shapes — the opposite of the
 reference's interleaved `fft_data {re, im}` AoS layout (src/highspeedFFT.h:20-23)
@@ -50,7 +50,7 @@ def conj_planes(re: Array, im: Array) -> Tuple[Array, Array]:
 # Error-free transforms (Knuth two-sum, Dekker/Veltkamp split product) — the
 # canonical set shared by the compensated SHT recurrence (ops/sht.py), the
 # NUFFT exact phase reduction and double-word segment sums (ops/nufft.py).
-# XLA preserves IEEE semantics (no reassociation), so these hold on TPU and
+# XLA preserves IEEE semantics (no reassociation), so these hold on GPU and
 # CPU alike; if the backend contracts mul+add into an FMA the product-error
 # term only gets MORE accurate.  All helpers are dtype-polymorphic but the
 # splitter constants target fp32 operands.

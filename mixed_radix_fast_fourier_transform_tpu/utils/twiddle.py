@@ -46,9 +46,9 @@ def _cast(pair, dtype) -> tuple[np.ndarray, np.ndarray]:
 def dft_matrix(n: int, sign: int, dtype=np.float32) -> tuple[np.ndarray, np.ndarray]:
     """Dense n×n DFT matrix W[j,k] = e^(sign·2πi·j·k/n) as (real, imag) planes.
 
-    TPU-native replacement for the reference's unrolled leaf butterflies and its
-    O(r²) general-radix combine (src/highSpeedFFT.c:333-713, 1475-1628): on TPU
-    a small dense DFT is a single MXU matmul.
+    Replacement for the reference's unrolled leaf butterflies and its
+    O(r²) general-radix combine (src/highSpeedFFT.c:333-713, 1475-1628): a small dense DFT is a
+    single matmul.
     """
     nat = _native()
     if nat is not None:

@@ -1,6 +1,6 @@
 // Native planner core: factorization, stage scheduling, twiddle generation.
 //
-// TPU-native parallel of the reference C library's cold path (fft_init /
+// Host-side parallel of the reference C library's cold path (fft_init /
 // factors / dividebyN / longvectorN — /root/reference/src/highSpeedFFT.c:206-286,
 // 1954-2163, 2238-2313), redesigned rather than ported:
 //   * exact trial-division + 6k±1 wheel factorization for every n >= 1

@@ -3,11 +3,11 @@
 The one idea worth keeping from the reference's (non-compiling) GoogleTest
 suite is that FAILURE paths deserve direct tests: it fakes malloc to check
 allocation-failure → NULL handling (test/test_mixedRadixFFT.cpp:243-259,
-1734-1750) and EXPECT_DEATHs invalid args (262-270).  The TPU-native
-analogues exercised here:
+1734-1750) and EXPECT_DEATHs invalid args (262-270).  The analogues
+exercised here:
 
 * HBM-budget rejection: an over-budget distributed four-step config raises
-  a typed :class:`HBMBudgetError` at plan time instead of OOMing on chip.
+  a typed :class:`HBMBudgetError` at plan time instead of OOMing on the device.
 * Plan-manifest corruption: :func:`load_plans` fails cleanly (typed error,
   live cache untouched) on missing, corrupt, or structurally-wrong files.
 * Native-library disappearance mid-session: the pure-Python fallback takes
@@ -40,16 +40,16 @@ from mixed_radix_fast_fourier_transform_tpu.utils.profiling import (
 
 class TestHBMBudget:
     def test_canonical_config_fits(self):
-        est = require_four_step_hbm(65536, 4096, 8)
-        assert est["fits_v5e_16gb"]
+        est = require_four_step_hbm(65536, 4096, 8, limit_gb=80.0)
+        assert est["limit_gb"] == 80.0
         assert est["total_gb"] < 15.0
 
     def test_over_budget_raises_typed(self):
         # 64x the canonical batch on one chip: ~hundreds of GB/chip
         with pytest.raises(HBMBudgetError) as ei:
-            require_four_step_hbm(65536, 4096 * 64, 1)
+            require_four_step_hbm(65536, 4096 * 64, 1, limit_gb=80.0)
         msg = str(ei.value)
-        assert "GB/chip" in msg and "shard" in msg
+        assert "GB/device" in msg and "shard" in msg
         # HBMBudgetError is a ValueError: generic API-boundary handlers
         # that catch ValueError keep working
         assert isinstance(ei.value, ValueError)
@@ -57,9 +57,9 @@ class TestHBMBudget:
     def test_budget_scales_down_with_parts(self):
         big = 4096 * 64
         with pytest.raises(HBMBudgetError):
-            require_four_step_hbm(65536, big, 1)
+            require_four_step_hbm(65536, big, 1, limit_gb=80.0)
         # the fix the error message suggests actually works
-        est = require_four_step_hbm(65536, big, 512)
+        est = require_four_step_hbm(65536, big, 512, limit_gb=80.0)
         assert est["total_gb"] <= 15.0
 
 

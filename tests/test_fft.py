@@ -192,7 +192,7 @@ def test_reference_broken_lengths(rng, n):
 def test_stage_matmul_forms_crossover(rng):
     """One plan mixing both stage-matmul forms: a >=128 stage (Karatsuba
     3-matmul) and a <128 stage (stacked block matmul) must compose correctly
-    (ops/stockham.KARATSUBA_MIN_STAGE crossover, measured on v5e)."""
+    (ops/stockham.KARATSUBA_MIN_STAGE crossover)."""
     from mixed_radix_fast_fourier_transform_tpu.ops.stockham import (
         KARATSUBA_MIN_STAGE,
         exec_mixed_radix,
@@ -240,7 +240,7 @@ def test_precision_ladder(rng):
         errs[prec] = np.max(np.abs(got - want)) / np.max(np.abs(want))
     assert errs["highest"] < TOL
     # CPU executes all precisions as true fp32, so the ladder only orders on
-    # TPU backends; assert it when the backend actually degrades precision.
+    # backends that degrade precision; assert it when the backend does.
     if errs["default"] > 2 * errs["highest"]:
         assert errs["highest"] <= errs["high"] <= errs["default"]
 
@@ -293,7 +293,7 @@ def test_per_stage_precision_tuple():
 
 
 def test_butterfly_small_stages():
-    """Radix-2/4 stages as VPU butterflies (plan.butterfly=True) match the
+    """Radix-2/4 stages as elementwise butterflies (plan.butterfly=True) match the
     dense-matmul form and numpy fp64, both signs, leaf and combine positions
     (see stockham._butterfly_stage — the N=65536 tail-stage A/B lever)."""
     import dataclasses
@@ -448,8 +448,7 @@ class TestRader:
             BluesteinPlan, RaderPlan,
         )
 
-        # default is "off" since round 5: Rader measured 0.755-0.776x vs
-        # Bluestein on chip (n=1009 b=64, twice) — opt in with "auto"
+        # default is "off" (Bluestein) — opt in with "auto"
         auto = sp.SpectralConfig(rader="auto")
         for n in (257, 509, 1009, 8191):
             assert isinstance(sp.get_plan(n, -1), BluesteinPlan), n
@@ -519,7 +518,7 @@ class TestRader:
         assert cost.n == 1009
         assert cost.flops > 2 * inner.flops
         # Rader does strictly less transform work than Bluestein here —
-        # yet measures slower on chip (gather permutations + narrow inner
-        # stages), which is why the default is Bluestein
+        # yet it adds gather permutations and narrow inner stages, and the
+        # default stays Bluestein
         blu = plan_cost(sp.get_plan(1009, -1))
         assert cost.flops < blu.flops

@@ -322,12 +322,13 @@ class TestApply:
 
 
 def test_recurrence_scan_matmuls_are_highest_precision():
-    """Round-5 on-chip regression: default-precision matmuls in the
-    associative-scan combine take bf16 operand passes on TPU whose error
-    COMPOUNDS over the log2(n) levels — butter6 sosfilt at n=65536
-    measured 8.9e-3 rel err vs scipy on v5e, 3.1e-7 with HIGHEST.  CPU
-    can't reproduce the drift, so guard the lowering instead: every
-    dot_general in the jitted program must carry HIGHEST."""
+    """Regression: default-precision matmuls in the associative-scan
+    combine may take reduced-precision operand passes (bf16, or TF32 on
+    GPU tensor cores) whose error COMPOUNDS over the log2(n) levels —
+    butter6 sosfilt at n=65536 reached 8.9e-3 rel err vs scipy with bf16
+    operands, 3.1e-7 with HIGHEST.  CPU can't reproduce the drift, so guard
+    the lowering instead: every dot_general in the jitted program must
+    carry HIGHEST."""
     import re
 
     import jax

@@ -427,8 +427,7 @@ def test_nufft3_fast_explicit_extents_jittable(rng):
 def test_nufft3_auto_dispatch(rng):
     """method='auto' picks by the space-bandwidth cost model: dense when
     S·X makes the inner grid enormous, fast when M·K dwarfs the grid work
-    (round-5 on-chip motivation: 'fast' at M=K=4096, S·X=1024π measured
-    435 ms vs ms-class dense)."""
+    (at M=K=4096, S·X=1024π the fast path's inner grid is ~16384²)."""
     from mixed_radix_fast_fourier_transform_tpu.ops.nufft import (
         _type3_fast_wins,
     )
@@ -581,15 +580,14 @@ def test_nufft_lsq_3d_recovers_modes(rng):
 
 
 # ---------------------------------------------------------------------------
-# Sorted-segment spreading engine (opt-in; auto-dispatch disabled on TPU —
-# measured 0.05-0.06x vs the block-matmul path, see the section comment in
-# ops/nufft.py).  Kept correct as the bounded-memory fallback and as an
+# Sorted-segment spreading engine (opt-in; auto-dispatch disabled, see the
+# section comment in ops/nufft.py).  Kept correct as the bounded-memory fallback and as an
 # independent reference implementation for the block path.
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.slow  # sorted-spread engine: opt-in oracle path (measured
-# 0.05x the block path on v5e, auto-dispatch disabled) — slow-lane coverage
+@pytest.mark.slow  # sorted-spread engine: opt-in oracle path
+# (auto-dispatch disabled) — slow-lane coverage
 def test_spread_sorted_1d_matches_block(rng):
     from mixed_radix_fast_fourier_transform_tpu.ops import nufft as nf
 
@@ -607,8 +605,8 @@ def test_spread_sorted_1d_matches_block(rng):
     assert np.max(np.abs(g_block - g_sorted)) / scale < 5e-6
 
 
-@pytest.mark.slow  # sorted-spread engine: opt-in oracle path (measured
-# 0.05x the block path on v5e, auto-dispatch disabled) — slow-lane coverage
+@pytest.mark.slow  # sorted-spread engine: opt-in oracle path
+# (auto-dispatch disabled) — slow-lane coverage
 def test_spread_sorted_batched_strengths(rng):
     from mixed_radix_fast_fourier_transform_tpu.ops import nufft as nf
 
@@ -622,8 +620,8 @@ def test_spread_sorted_batched_strengths(rng):
     np.testing.assert_allclose(g[1], g0, rtol=0, atol=1e-5 * np.abs(g0).max())
 
 
-@pytest.mark.slow  # sorted-spread engine: opt-in oracle path (measured
-# 0.05x the block path on v5e, auto-dispatch disabled) — slow-lane coverage
+@pytest.mark.slow  # sorted-spread engine: opt-in oracle path
+# (auto-dispatch disabled) — slow-lane coverage
 def test_nufft1_sorted_dispatch_matches_oracle(rng, monkeypatch):
     from mixed_radix_fast_fourier_transform_tpu.ops import nufft as nf
 
@@ -637,8 +635,8 @@ def test_nufft1_sorted_dispatch_matches_oracle(rng, monkeypatch):
     assert np.max(np.abs(got - ref)) / scale < 1e-5
 
 
-@pytest.mark.slow  # sorted-spread engine: opt-in oracle path (measured
-# 0.05x the block path on v5e, auto-dispatch disabled) — slow-lane coverage
+@pytest.mark.slow  # sorted-spread engine: opt-in oracle path
+# (auto-dispatch disabled) — slow-lane coverage
 def test_nufft1_2d_sorted_dispatch_matches_dense(rng, monkeypatch):
     from mixed_radix_fast_fourier_transform_tpu.ops import nufft as nf
 
@@ -652,8 +650,8 @@ def test_nufft1_2d_sorted_dispatch_matches_dense(rng, monkeypatch):
     assert np.max(np.abs(got - ref)) / scale < 1e-5
 
 
-@pytest.mark.slow  # sorted-spread engine: opt-in oracle path (measured
-# 0.05x the block path on v5e, auto-dispatch disabled) — slow-lane coverage
+@pytest.mark.slow  # sorted-spread engine: opt-in oracle path
+# (auto-dispatch disabled) — slow-lane coverage
 def test_seg_sum_sorted_compensated_accuracy(rng):
     """The double-word prefix carry keeps segment sums near fp64 accuracy
     even when prefix magnitudes are ~M x the per-segment results."""

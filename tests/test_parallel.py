@@ -2,7 +2,7 @@
 
 The reference has no distributed code to compare against (SURVEY.md §2.3);
 the oracle is numpy.fft on the global array.  These tests exercise the real
-collectives (all_to_all under shard_map) that ride ICI on hardware.
+collectives (all_to_all under shard_map) that ride the interconnect on hardware.
 """
 
 import jax

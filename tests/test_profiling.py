@@ -2,6 +2,7 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from mixed_radix_fast_fourier_transform_tpu.plan import get_plan
 from mixed_radix_fast_fourier_transform_tpu.utils.profiling import (
@@ -18,10 +19,11 @@ class TestPlanCost:
         cost = plan_cost(plan)
         assert cost.n == 1024
         assert cost.fft_model_flops == 5 * 1024 * 10
-        # stages (64, 16): flops = 8*1024*(64+16) + 6*1024 (one twiddle pass)
-        assert cost.flops == 8 * 1024 * sum(plan.factors) + 6 * 1024 * (
-            len(plan.factors) - 1
-        )
+        # stages (64, 16): the 64-stage is a stacked matmul (8·n·f) plus
+        # one split-twiddle pass (6·n); the 16-tail runs as the radix-16
+        # butterfly (11 real ops per point)
+        assert plan.factors == (64, 16) and plan.butterfly
+        assert cost.flops == 8 * 1024 * 64 + 6 * 1024 + 11 * 1024
         assert cost.arithmetic_intensity > 1.0
 
     def test_bluestein_model(self):
@@ -53,7 +55,19 @@ class TestTiming:
 
     def test_trace_noop_tolerant(self, tmp_path):
         with trace(str(tmp_path)):
-            _ = jnp.sum(jnp.ones(8))
+            _ = jnp.sum(jnp.ones(8)).block_until_ready()
+        assert list(tmp_path.rglob("*.xplane.pb"))
+
+    def test_trace_raises_when_profiler_fails(self, tmp_path, monkeypatch):
+        import jax
+
+        def boom(*a, **k):
+            raise RuntimeError("no profiler")
+
+        monkeypatch.setattr(jax.profiler, "start_trace", boom)
+        with pytest.raises(RuntimeError, match="no profiler"):
+            with trace(str(tmp_path)):
+                pass
 
 
 class TestPlanPersistence:
@@ -76,15 +90,71 @@ class TestPlanPersistence:
 
 
 def test_estimate_four_step_hbm_config5():
-    """BASELINE config 5 (65536-pt, batch 4096, v5e-8) fits HBM with margin."""
+    """BASELINE config 5 (65536-pt, batch 4096, 8 devices) fits an 80 GB
+    card with margin."""
     from mixed_radix_fast_fourier_transform_tpu.utils.profiling import (
+        HBMBudgetError,
         estimate_four_step_hbm,
+        require_four_step_hbm,
     )
 
     b = estimate_four_step_hbm(65536, 4096, 8)
     assert b["per_copy_bytes"] == 4096 * 8192 * 2 * 4  # 256 MiB
-    assert b["fits_v5e_16gb"]
     assert 1.0 < b["total_gb"] < 4.0
-    # and a shape that should NOT fit flags false
-    big = estimate_four_step_hbm(1 << 22, 65536, 8)
-    assert not big["fits_v5e_16gb"]
+    assert require_four_step_hbm(65536, 4096, 8, limit_gb=80.0)["limit_gb"] == 80.0
+    # and a shape that should NOT fit is rejected
+    with pytest.raises(HBMBudgetError):
+        require_four_step_hbm(1 << 22, 65536, 8, limit_gb=80.0)
+
+
+class _FakeDevice:
+    def __init__(self, stats):
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+@pytest.mark.parametrize("limit_gib, fits", [(60.0, True), (1.0, False)])
+def test_hbm_guard_reads_device_limit(limit_gib, fits):
+    from mixed_radix_fast_fourier_transform_tpu.utils.profiling import (
+        HBMBudgetError,
+        require_four_step_hbm,
+    )
+
+    dev = _FakeDevice({"bytes_limit": int(limit_gib * 2**30),
+                       "peak_bytes_in_use": 0})
+    if fits:
+        est = require_four_step_hbm(65536, 4096, 4, device=dev)
+        assert est["limit_gb"] == pytest.approx(limit_gib)
+    else:
+        with pytest.raises(HBMBudgetError, match="budget 1 GB"):
+            require_four_step_hbm(65536, 4096, 4, device=dev)
+
+
+@pytest.mark.parametrize("stats", [None, {}, {"peak_bytes_in_use": 5}])
+def test_hbm_guard_without_device_limit_needs_explicit_budget(stats):
+    from mixed_radix_fast_fourier_transform_tpu.utils.profiling import (
+        device_memory_limit_gb,
+        require_four_step_hbm,
+    )
+
+    dev = _FakeDevice(stats)
+    assert device_memory_limit_gb(dev) is None
+    with pytest.raises(ValueError, match="limit_gb"):
+        require_four_step_hbm(65536, 4096, 4, device=dev)
+    # an explicit budget is used as given
+    assert require_four_step_hbm(65536, 4096, 4, device=dev,
+                                 limit_gb=16.0)["limit_gb"] == 16.0
+
+
+def test_hbm_guard_on_cpu_backend_has_no_limit():
+    import jax
+
+    from mixed_radix_fast_fourier_transform_tpu.utils.profiling import (
+        require_four_step_hbm,
+    )
+
+    assert jax.devices()[0].platform == "cpu"
+    with pytest.raises(ValueError, match="limit_gb"):
+        require_four_step_hbm(4096, 8, 2)

@@ -183,6 +183,46 @@ def test_persistent_compile_cache_helper(tmp_path):
     assert jax.config.jax_compilation_cache_dir == path
 
 
+@pytest.mark.parametrize("env", [None, "", "/data/jax-cache"])
+def test_compile_cache_dir_choice(env, monkeypatch):
+    import os
+    import tempfile
+
+    from mixed_radix_fast_fourier_transform_tpu.utils import cache
+
+    if env is None:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    else:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env)
+    got = cache.compile_cache_dir()
+    if env:
+        assert got == env
+        return
+    # unset (or empty): the fixed path inside the checkout, never a
+    # temporary or per-process directory
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert got == os.path.join(repo, ".jax_cache") == cache.REPO_CACHE_DIR
+    assert not got.startswith(tempfile.gettempdir() + os.sep)
+    assert str(os.getpid()) not in got
+
+
+def test_enable_persistent_cache_uses_env_dir(tmp_path, monkeypatch):
+    import jax
+
+    from mixed_radix_fast_fourier_transform_tpu.utils.cache import (
+        enable_persistent_cache,
+    )
+
+    before = jax.config.jax_compilation_cache_dir
+    target = str(tmp_path / "from-env")
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", target)
+    try:
+        assert enable_persistent_cache() == target
+        assert jax.config.jax_compilation_cache_dir == target
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
 def test_stage_strategy_respected_and_cached_separately():
     import dataclasses
 
